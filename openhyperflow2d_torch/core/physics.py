@@ -1,0 +1,427 @@
+"""Per-node physics: EOS, fluxes, k-eps turbulence, chemistry.
+
+Counterpart of ``openhyperflow2d_tpu.core.physics`` (``FillNode2D``,
+``TurbModRANS2D`` and ``CalcChemicalReactions`` of the reference,
+hyper_flow_node.hpp:374-957, deeps2d_core.cpp:4697-4780) on torch tensors.
+Every per-node branch is a ``torch.where`` mask, with the operation order of
+the JAX version kept so float64 results agree to rounding.
+
+Ported closures: standard k-eps (``TEM_k_eps_Std``) with its wall
+treatment.  The other closures and the conjugate wall-heat stage are not
+ported yet; ``check_supported`` (solver/runner.py) refuses such cases
+before anything runs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from openhyperflow2d_tpu.core import flags as fl
+
+from ..config.tables import table_lookup
+from .state import ChemTables, GridMeta, SolverParams, SolverState
+from .static_ctx import StaticCtx, build_static_ctx, iscond
+
+TURB_INTENSITY = 0.005   # FlowNodeTurbulence2D::I (hyper_flow_turbulence.hpp:135)
+
+
+def _safe_div(a, b, fallback=0.0):
+    ok = b != 0
+    return torch.where(ok, a / torch.where(ok, b, 1), fallback)
+
+
+# ---------------------------------------------------------------------------
+# Fold-aware mask combinators: with a Python-bool mask (the specialized
+# interior ctx) the select/logic folds away; with tensor masks they are
+# exactly torch.where / & / | / ~.
+# ---------------------------------------------------------------------------
+def _shape(x):
+    return tuple(x.shape) if isinstance(x, torch.Tensor) else ()
+
+
+def wsel(cond, a, b):
+    """torch.where that folds Python/numpy bool conditions."""
+    if isinstance(cond, (bool, np.bool_)):
+        taken = a if cond else b
+        ref = a if isinstance(a, torch.Tensor) else b
+        shape = torch.broadcast_shapes(_shape(a), _shape(b))
+        t = torch.as_tensor(taken, dtype=torch.result_type(a, b),
+                            device=ref.device)
+        return t.expand(shape)
+    return torch.where(cond, a, b)
+
+
+def band(a, b):
+    """a & b with Python-bool folding (False short-circuits to False)."""
+    if isinstance(a, (bool, np.bool_)):
+        return b if a else False
+    if isinstance(b, (bool, np.bool_)):
+        return a if b else False
+    return a & b
+
+
+def bor(a, b):
+    """a | b with Python-bool folding (True short-circuits to True)."""
+    if isinstance(a, (bool, np.bool_)):
+        return True if a else b
+    if isinstance(b, (bool, np.bool_)):
+        return True if b else a
+    return a | b
+
+
+def bnot(a):
+    """~a that is safe on Python bools (~False == -1 in Python)."""
+    if isinstance(a, (bool, np.bool_)):
+        return not a
+    return ~a
+
+
+def node_masks(meta: GridMeta):
+    """Common node classification masks."""
+    ct = meta.CT
+    solid = iscond(ct, fl.CT_SOLID_2D)
+    is_set = iscond(ct, fl.CT_NODE_IS_SET_2D)
+    fc = iscond(ct, fl.NT_FC_2D)
+    active = is_set & ~solid & ~fc
+    return solid, is_set, fc, active
+
+
+def fill_node(state: SolverState, meta: GridMeta, params: SolverParams,
+              is_mu_t, is_init: bool, ctx: StaticCtx = None) -> SolverState:
+    """FillNode2D over the whole grid (hyper_flow_node.hpp:374-600).
+
+    ``is_mu_t`` is a per-node bool mask; ``is_init`` selects the
+    initialization variant.
+    """
+    p = params
+    if ctx is None:
+        ctx = build_static_ctx(meta, p)
+    ne = fl.NUM_EQ
+    s = list(state.S.unbind(0))
+    a_l = list(state.A.unbind(0))
+    b_l = list(state.B.unbind(0))
+    f_l = list(state.F.unbind(0))
+    src = list(state.Src.unbind(0))
+    rho = s[fl.i2d_Rho]
+    solid = ctx.solid
+
+    k_cpcv = _safe_div(state.CP, state.CP - state.R, 2.0)
+    guard = band(bnot(solid), (rho != 0) & (k_cpcv >= 1))
+    rho_s = torch.where(rho != 0, rho, 1)
+    if p.fast_math:
+        r_rho = 1.0 / rho_s
+
+        def div_rho(a):
+            return a * r_rho
+    else:
+        def div_rho(a):
+            return a / rho_s
+
+    # --- U/V with per-equation Dirichlet enforcement (hpp:413-421) --------
+    u_const = ctx.u_const
+    v_const = ctx.v_const
+    U = wsel(u_const, state.U, div_rho(s[fl.i2d_RhoU]))
+    V = wsel(v_const, state.V, div_rho(s[fl.i2d_RhoV]))
+    s[fl.i2d_RhoU] = wsel(u_const, U * rho, s[fl.i2d_RhoU])
+    s[fl.i2d_RhoV] = wsel(v_const, V * rho, s[fl.i2d_RhoV])
+
+    mu_t = state.mu_t
+    lam_t = state.lam_t
+
+    if p.sm == fl.SM_NS:
+        if is_init:
+            mu_t = wsel(ctx.turb_on, 5.0 * state.mu, torch.zeros_like(mu_t))
+            lam_t = wsel(ctx.turb_on, lam_t, torch.zeros_like(lam_t))
+        mu_t, lam_t = _turb_mod_rans(state, meta, p, s, U, V, a_l, b_l, f_l,
+                                     src, mu_t, lam_t, is_mu_t, is_init, ctx)
+
+    # --- formation enthalpy sum (hpp:438-445) -----------------------------
+    Hu = list(p.Hu)
+    h_form = torch.zeros_like(rho)
+    rho_air = rho
+    for c in range(fl.NUM_COMPONENTS):
+        h_form = h_form + Hu[c] * s[4 + c]
+        rho_air = rho_air - s[4 + c]
+    h_form = h_form + Hu[fl.NUM_COMPONENTS] * rho_air
+
+    # --- wall handling (hpp:447-488) --------------------------------------
+    wall_law = ctx.wall_law
+    wall_ns = ctx.wall_ns
+    zero = torch.zeros_like(rho)
+    src_add = [zero] * ne
+    if p.has_walls:
+        # WALL_LAW: project momentum onto the wall direction
+        w_mag = torch.sqrt(U * U + V * V + 1.e-30)
+        s[fl.i2d_RhoU] = wsel(wall_law, w_mag * meta.BGX, s[fl.i2d_RhoU])
+        s[fl.i2d_RhoV] = wsel(wall_law, w_mag * meta.BGY, s[fl.i2d_RhoV])
+        U = wsel(wall_law, div_rho(s[fl.i2d_RhoU]), U)
+        V = wsel(wall_law, div_rho(s[fl.i2d_RhoV]), V)
+        # WALL_NO_SLIP: gas moves with the wall (moving-wall sources, the
+        # isSrcAdd branch, are not ported: check_supported refuses them)
+        U = wsel(wall_ns, meta.Uw, U)
+        V = wsel(wall_ns, meta.Vw, V)
+        s[fl.i2d_RhoU] = wsel(wall_ns, U * rho, s[fl.i2d_RhoU])
+        s[fl.i2d_RhoV] = wsel(wall_ns, V * rho, s[fl.i2d_RhoV])
+
+    # --- EOS (hpp:490-492) -------------------------------------------------
+    p_new = (k_cpcv - 1.0) * (s[fl.i2d_RhoE]
+                              - rho * (U * U + V * V) * 0.5 - h_form)
+    Tg_new = _safe_div(p_new, state.R * rho_s)
+
+    # --- effective transport & viscous/convective fluxes -------------------
+    if p.sm == fl.SM_NS:
+        lam_t = mu_t * state.CP
+        sig = ctx.sig
+        mu_eff = wsel(is_mu_t, torch.clamp_min(state.mu + mu_t * sig, 0.0),
+                      state.mu)
+        lam_eff = wsel(is_mu_t,
+                       torch.clamp_min(state.lam + lam_t * sig, 0.0),
+                       state.lam)
+        diff = lam_eff / state.CP
+        L2 = (2.0 / 3.0) * mu_eff
+        dila = L2 * (state.dUdx + state.dVdy)
+
+    an = list(a_l)
+    bn = list(b_l)
+    fn = list(f_l)
+    an[0] = s[fl.i2d_RhoU]
+    an[1] = p_new + s[fl.i2d_RhoU] * U
+    an[2] = s[fl.i2d_RhoV] * U
+    an[3] = (s[fl.i2d_RhoE] + p_new) * U
+    bn[0] = s[fl.i2d_RhoV]
+    bn[1] = an[2]
+    bn[2] = p_new + s[fl.i2d_RhoV] * V
+    bn[3] = (s[fl.i2d_RhoE] + p_new) * V
+    for c in range(4, 4 + fl.NUM_COMPONENTS):
+        an[c] = s[c] * U
+        bn[c] = s[c] * V
+
+    if p.sm == fl.SM_NS:
+        sxx = 2.0 * mu_eff * state.dUdx - dila
+        syy = 2.0 * mu_eff * state.dVdy - dila
+        txy = mu_eff * (state.dUdy + state.dVdx)
+        qx = lam_eff * state.dTdx
+        qy = lam_eff * state.dTdy
+        for c in range(fl.NUM_COMPONENTS + 1):
+            qx = qx + diff * (state.CP * Tg_new + Hu[c]) * state.droYdx[c]
+            qy = qy + diff * (state.CP * Tg_new + Hu[c]) * state.droYdy[c]
+        RX1, RX2, RX3 = sxx, txy, U * sxx + V * txy + qx
+        RY1, RY2, RY3 = txy, syy, U * txy + V * syy + qy
+        an[1] = an[1] - RX1
+        an[2] = an[2] - RX2
+        an[3] = an[3] - RX3
+        bn[1] = bn[1] - RY1
+        bn[2] = bn[2] - RY2
+        bn[3] = bn[3] - RY3
+        for c in range(4, 4 + fl.NUM_COMPONENTS):
+            an[c] = an[c] - diff * state.droYdx[c - 4]
+            bn[c] = bn[c] - diff * state.droYdy[c - 4]
+        # flat NS zeroes the whole F vector, all NumEq (hpp:595-598)
+        fn = [zero] * ne
+
+    # --- assemble outputs through the guard mask ---------------------------
+    def sel(new, old):
+        return wsel(guard, new, old)
+
+    def stack(new, old):
+        return torch.stack([sel(new[e], old[e]) for e in range(ne)])
+
+    return state.replace(
+        S=stack(s, state.S), A=stack(an, state.A), B=stack(bn, state.B),
+        F=stack(fn, state.F), Src=stack(src, state.Src),
+        SrcAdd=stack(src_add, state.SrcAdd),
+        U=sel(U, state.U), V=sel(V, state.V),
+        p=sel(p_new, state.p), Tg=sel(Tg_new, state.Tg),
+        mu_t=sel(mu_t, state.mu_t), lam_t=sel(lam_t, state.lam_t))
+
+
+def _turb_mod_rans(state, meta, p, s, U, V, a_l, b_l, f_l, src, mu_t, lam_t,
+                   is_mu_t, is_init, ctx: StaticCtx):
+    """TurbModRANS2D (hyper_flow_node.hpp:601-957), standard k-eps
+    (hpp:640-820) with its wall treatment.
+
+    Mutates the plane lists (s, a_l, b_l, f_l, src) for the turbulence
+    equations; returns (mu_t, lam_t).
+    """
+    unported = [m for m in p.models if m != "keps"]
+    if unported or ("keps" in p.models and p.tem != fl.TEM_k_eps_Std):
+        raise NotImplementedError(
+            f"turbulence closures {unported or [p.tem]} are not ported; "
+            f"only standard k-eps (TurbExtModel={fl.TEM_k_eps_Std})")
+    if "keps" not in p.models:
+        return mu_t, lam_t
+
+    rho = s[fl.i2d_Rho]
+    rho_s = torch.where(rho != 0, rho, 1)
+    l_base = ctx.l_base
+    m_keps = ctx.m_keps
+
+    grad_mag = torch.maximum(torch.abs(state.dUdy), torch.abs(state.dVdx))
+    Sk = s[fl.i2d_k]
+    Se = s[fl.i2d_eps]
+    tmp1 = state.dUdy + state.dVdx
+    tmp3 = state.dUdx * state.dUdx + state.dVdy * state.dVdy
+    mu_t_ke = torch.where(mu_t == 0, rho * l_base * l_base * grad_mag, mu_t)
+    G = mu_t_ke * (tmp1 * tmp1 + 2.0 * tmp3)
+
+    # standard closure: f1 = f2 = f_mu = 1, no low-Re terms
+    f_mu = torch.ones_like(rho)
+    L_k = torch.zeros_like(rho)
+    L_eps = torch.zeros_like(rho)
+    Mt = torch.zeros_like(rho)
+    C1eps, C2eps, C_mu = 1.44, 1.92, 0.09
+    sig_k, sig_eps = 1.0, 1.3
+    f1 = f2 = 1.0
+
+    w_mag = torch.sqrt(U * U + V * V + 1.e-30)
+    tmpI = TURB_INTENSITY * w_mag
+    k_init = 1.5 * tmpI * tmpI * rho
+    l_s = ctx.l_s
+
+    def eps_of_k(sk):
+        return (C_mu ** 0.75
+                * torch.clamp_min(_safe_div(sk, rho_s), 0.0) ** 1.5 / l_s)
+
+    if is_init:
+        Sk = wsel(m_keps, k_init, Sk)
+        Se = wsel(m_keps, eps_of_k(Sk), Se)
+        mu_t_new = torch.abs(C_mu * f_mu * _safe_div(Sk * Sk, Se))
+        mu_t_ke = torch.where(Se != 0, mu_t_new, mu_t_ke)
+
+    kconst = ctx.kconst
+    econst = ctx.econst
+    Sk = wsel(band(m_keps, kconst), k_init, Sk)
+    Se = wsel(band(m_keps, bor(econst, ctx.ewall)), eps_of_k(Sk), Se)
+
+    nu_t = torch.abs(C_mu * f_mu * _safe_div(Sk * Sk, Se))
+    mu_t_ke = wsel(band(is_mu_t, Se != 0), torch.minimum(nu_t, mu_t_ke),
+                   mu_t_ke)
+
+    if not is_init:
+        if p.fast_math:
+            mt_sk = mu_t_ke * (1.0 / sig_k)
+            mt_se = mu_t_ke * (1.0 / sig_eps)
+        else:
+            mt_sk = mu_t_ke / sig_k
+            mt_se = mu_t_ke / sig_eps
+        rx_k = (state.mu + mt_sk) * state.dkdx
+        rx_e = (state.mu + mt_se) * state.depsdx
+        ry_k = (state.mu + mt_sk) * state.dkdy
+        ry_e = (state.mu + mt_se) * state.depsdy
+        a_l[fl.i2d_k] = wsel(m_keps, Sk * U - rx_k, a_l[fl.i2d_k])
+        a_l[fl.i2d_eps] = wsel(m_keps, Se * U - rx_e, a_l[fl.i2d_eps])
+        b_l[fl.i2d_k] = wsel(m_keps, Sk * V - ry_k, b_l[fl.i2d_k])
+        b_l[fl.i2d_eps] = wsel(m_keps, Se * V - ry_e, b_l[fl.i2d_eps])
+        src_k = wsel(band(Sk != 0, bnot(kconst)),
+                     G - Se * (1.0 + Mt) + L_k * rho, src[fl.i2d_k])
+        src_e = wsel(band(Sk != 0, bnot(econst)),
+                     C1eps * f1 * _safe_div(Se, Sk) * G
+                     - C2eps * f2 * _safe_div(Se * Se, Sk) + L_eps * rho,
+                     src[fl.i2d_eps])
+        src[fl.i2d_k] = wsel(m_keps, src_k, src[fl.i2d_k])
+        src[fl.i2d_eps] = wsel(m_keps, src_e, src[fl.i2d_eps])
+    else:
+        f_l[fl.i2d_k] = wsel(m_keps, 0.0, f_l[fl.i2d_k])
+        f_l[fl.i2d_eps] = wsel(m_keps, 0.0, f_l[fl.i2d_eps])
+        src[fl.i2d_k] = wsel(m_keps, 0.0, src[fl.i2d_k])
+        src[fl.i2d_eps] = wsel(m_keps, 0.0, src[fl.i2d_eps])
+
+    s[fl.i2d_k] = wsel(m_keps, Sk, s[fl.i2d_k])
+    s[fl.i2d_eps] = wsel(m_keps, Se, s[fl.i2d_eps])
+    mu_t = wsel(m_keps, mu_t_ke, mu_t)
+    return mu_t, lam_t
+
+
+def calc_chemical_reactions(state: SolverState, meta: GridMeta,
+                            params: SolverParams, chem: ChemTables,
+                            active, ctx: StaticCtx = None) -> SolverState:
+    """CalcChemicalReactions, Zeldovich infinitely-fast model
+    (deeps2d_core.cpp:4697-4780), applied to ``active`` nodes; order of
+    operations kept (renormalize -> burn -> mixture props -> clip ->
+    renormalize -> store)."""
+    p = params
+    S = state.S
+    rho = S[fl.i2d_Rho]
+    rho_s = torch.where(rho != 0, rho, 1)
+    Tg = state.Tg
+
+    if p.fast_math:
+        r_rho = 1.0 / rho_s
+        Yfu = S[fl.i2d_Yfu] * r_rho
+        Yox = S[fl.i2d_Yox] * r_rho
+        Ycp = S[fl.i2d_Ycp] * r_rho
+    else:
+        Yfu = S[fl.i2d_Yfu] / rho_s
+        Yox = S[fl.i2d_Yox] / rho_s
+        Ycp = S[fl.i2d_Ycp] / rho_s
+    Yair = 1.0 - (Yfu + Yox + Ycp)
+
+    if ctx is not None:
+        react = ctx.react
+    else:
+        react = active & ~iscond(meta.CT, fl.CT_Y_CONST_2D)
+
+    if p.chemistry == fl.CRM_ZELDOVICH:
+        ssum = Yfu + Yox + Ycp + Yair
+        Y0 = _safe_div(torch.ones_like(ssum), ssum, 1.0)
+        Yfu_n = Yfu * Y0
+        Yox_n = Yox * Y0
+        Ycp_n = Ycp * Y0
+        burn = band(react, Tg > p.Tf)
+        lean = Yox_n > Yfu_n * p.K0         # oxidizer excess
+        Yox_b = torch.where(lean, Yox_n - Yfu_n * p.K0, 0.0)
+        Yfu_b = torch.where(lean, 0.0, Yfu_n - Yox_n / max(p.K0, 1e-30))
+        Ycp_b = torch.where(lean, 1.0 - Yox_b - Yair, 1.0 - Yfu_b - Yair)
+        Yfu = torch.where(burn, Yfu_b, wsel(react, Yfu_n, Yfu))
+        Yox = torch.where(burn, Yox_b, wsel(react, Yox_n, Yox))
+        Ycp = torch.where(burn, Ycp_b, wsel(react, Ycp_n, Ycp))
+
+    # mixture properties at Tg (pre-clip mass fractions)
+    def tl(prefix):
+        def one(sp, w):
+            return table_lookup(
+                getattr(chem, f"{prefix}_{sp}_x"),
+                getattr(chem, f"{prefix}_{sp}_y"), Tg,
+                ascending=(f"{prefix}_{sp}" in p.chem_asc)) * w
+        return (one("Fuel", Yfu) + one("OX", Yox) + one("cp", Ycp)
+                + one("air", Yair))
+
+    R_new = (chem.R_Fuel * Yfu + chem.R_OX * Yox + chem.R_cp * Ycp
+             + chem.R_air * Yair)
+    CP_new = tl("Cp")
+    if p.sm == fl.SM_NS:
+        lam_new = tl("lam")
+        mu_new = tl("mu")
+    else:
+        lam_new = state.lam
+        mu_new = state.mu
+
+    Yair = torch.where(Yair < 1.e-5, 0.0, Yair)
+    Ycp = torch.where(Ycp < 1.e-8, 0.0, Ycp)
+    Yox = torch.where(Yox < 1.e-8, 0.0, Yox)
+    Yfu = torch.where(Yfu < 1.e-8, 0.0, Yfu)
+    ssum = Yfu + Yox + Ycp + Yair
+    Y0 = _safe_div(torch.ones_like(ssum), ssum, 1.0)
+    Yfu = Yfu * Y0
+    Yox = Yox * Y0
+    Ycp = Ycp * Y0
+    Yair = Yair * Y0
+
+    Yc_new = torch.stack([
+        wsel(active, val, state.Yc[c])
+        for c, val in zip(range(4), (Yfu, Yox, Ycp, Yair))])
+
+    store = react
+    S_new = torch.stack([
+        S[0], S[1], S[2], S[3],
+        wsel(store, torch.abs(Yfu * rho), S[fl.i2d_Yfu]),
+        wsel(store, torch.abs(Yox * rho), S[fl.i2d_Yox]),
+        wsel(store, torch.abs(Ycp * rho), S[fl.i2d_Ycp]),
+        S[7], S[8]])
+
+    return state.replace(
+        S=S_new, Yc=Yc_new,
+        R=wsel(active, R_new, state.R), CP=wsel(active, CP_new, state.CP),
+        lam=wsel(active, lam_new, state.lam),
+        mu=wsel(active, mu_new, state.mu))

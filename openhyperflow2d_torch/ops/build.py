@@ -1,0 +1,119 @@
+"""Build and load the port's CUDA kernels.
+
+``load_kernels()`` compiles ``ops/csrc/*.cu`` with nvcc into one shared
+library with a plain C interface and loads it with ctypes.  The library goes
+to ``build/hf2d_torch/<hash of the sources>/`` under the repository root,
+so an edited source rebuilds and an unchanged one is reused.  A failed build
+raises with nvcc's output; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "hf2d_torch"
+LIB_NAME = "libhf2d_kernels.so"
+# no --use_fast_math: division and sqrt must stay IEEE so the kernels stay
+# inside their plain versions' envelope
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # spec, consts, cin, cout, scr, idn, mf, ctx, chemf, chemi, dt, aux,
+    # tiles, n_tiles, part_i, stream
+    "hf2d_gfc": [_I] + [_P] * 12 + [_I, _P, _P],
+    # spec, consts, cin, cout, scr, idn, ctx, dt, aux, tiles, n_tiles,
+    # part_f, stream
+    "hf2d_pass12": [_I] + [_P] * 9 + [_I, _P, _P],
+}
+
+
+@dataclass
+class KernelLib:
+    lib: ctypes.CDLL
+    path: Path
+    build_seconds: float   # 0.0 when the library was already built
+    ptxas_log: str         # nvcc -Xptxas -v output (registers, spills)
+
+    def check(self, code: int, what: str) -> None:
+        if code != 0:
+            msg = self.lib.hf2d_error_string(code).decode()
+            raise RuntimeError(f"{what} failed to launch: CUDA error "
+                               f"{code} ({msg})")
+
+
+def nvcc_path() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (looked on PATH and in "
+                       "/usr/local/cuda/bin); the CUDA kernels cannot be "
+                       "built")
+
+
+def _source_hash(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> tuple[Path, float, str]:
+    """Compile the kernels if needed; returns (library path, seconds spent
+    compiling, ptxas log)."""
+    sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    out_dir = BUILD_ROOT / _source_hash(sources)
+    lib_path = out_dir / LIB_NAME
+    log_path = out_dir / "ptxas.log"
+    if lib_path.exists():
+        return lib_path, 0.0, log_path.read_text() if log_path.exists() \
+            else ""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu = [str(s) for s in sources if s.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    log = proc.stdout + proc.stderr
+    log_path.write_text(log)
+    os.replace(tmp, lib_path)
+    return lib_path, secs, log
+
+
+_LOADED: KernelLib | None = None
+
+
+def load_kernels() -> KernelLib:
+    """Build (at first use) and load the kernel library, once per
+    process."""
+    global _LOADED
+    if _LOADED is None:
+        path, secs, log = build()
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.hf2d_error_string.argtypes = [ctypes.c_int]
+        lib.hf2d_error_string.restype = ctypes.c_char_p
+        _LOADED = KernelLib(lib, path, secs, log)
+    return _LOADED

@@ -1,0 +1,240 @@
+"""Time-marching loop: the DEEPS2D_Run equivalent on torch.
+
+Counterpart of ``openhyperflow2d_tpu.solver.runner``: an outer cycle of
+``Nstep`` inner iterations; the inner iterations run as one chunk (the
+eager ``make_fast_chunk`` or the kernel path's ``make_kernel_chunk``), and
+the outer cycle returns to Python for the host-side bookkeeping, exactly
+where the reference does its rank-0 work (deeps2d_core.cpp:512-2023).
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from openhyperflow2d_tpu.core import flags as fl
+
+from ..core.physics import fill_node
+from ..core.state import meta_from_grid, state_from_grid
+from ..core.static_ctx import generic_interior_map, iscond
+from ..core.step import make_fast_chunk
+from ..ops.fused_step import make_kernel_chunk
+from .init import Case, chem_tables_device
+
+
+def choose_step_path(device_type: str, dtype: str, uniform_mesh: bool,
+                     n_devices: int = 1):
+    """Step-path selection: the hand-written CUDA kernels run on a CUDA
+    device in float32 on a uniform mesh and one GPU; everything else runs
+    the eager, reference-exact path.  Decided from the configuration alone.
+    Returns ``(use_kernels, reason)``."""
+    if device_type != "cuda":
+        return False, (f"device is {device_type!r}; the kernels are CUDA "
+                       f"kernels")
+    if str(dtype) != "float32":
+        return False, (f"dtype {dtype}: the kernels are float32; float64 "
+                       f"runs take the eager path")
+    if not uniform_mesh:
+        return False, "non-uniform mesh runs on the eager path only"
+    if n_devices > 1:
+        return False, "multi-GPU runs are not ported"
+    return True, "CUDA, float32, uniform mesh, one GPU"
+
+
+def check_supported(params, n_devices: int = 1) -> None:
+    """Raise NotImplementedError naming everything this case needs that the
+    port does not do yet (nothing computes a partial result)."""
+    p = params
+    missing = []
+    if p.sm != fl.SM_NS:
+        missing.append("Euler decks (ProblemType=0)")
+    other = [m for m in p.models if m != "keps"]
+    if other:
+        missing.append(f"turbulence closures {other}")
+    if "keps" in p.models and p.tem != fl.TEM_k_eps_Std:
+        missing.append(f"k-eps variant TurbExtModel={p.tem}")
+    if p.ft != fl.FT_FLAT:
+        missing.append("axisymmetric flow")
+    if not p.uniform_mesh:
+        missing.append("non-uniform meshes")
+    if p.has_d2x or p.has_d2y:
+        missing.append("d2*-NULL soft boundary conditions")
+    if p.has_nrbc:
+        missing.append("non-reflected boundary conditions")
+    if p.has_ext_src:
+        missing.append("external sources")
+    if p.has_walls and not p.isAdiabaticWall:
+        missing.append("non-adiabatic walls (conjugate wall heat)")
+    if p.isSrcAdd:
+        missing.append("moving-wall sources")
+    if p.chemistry not in (fl.CRM_ZELDOVICH, fl.CRM_NO_REACTIONS):
+        missing.append(f"chemistry model {p.chemistry}")
+    if n_devices > 1:
+        missing.append("more than one GPU")
+    if missing:
+        raise NotImplementedError("not ported yet: " + "; ".join(missing))
+
+
+@dataclass
+class RunStats:
+    iters: int = 0
+    global_time: float = 0.0
+    rms_history: list = field(default_factory=list)   # (iter, RMS[9])
+    monitors: list = field(default_factory=list)
+    steps_per_sec: float = 0.0
+    unstable: bool = False
+    # kernel path only: a frozen dt exceeded some node's freshly computed
+    # CFL limit during the cycle
+    dt_overrun: bool = False
+
+
+class Solver:
+    """Single-device solver.
+
+    ``device``: torch device (default: CUDA when available, else CPU).
+    ``use_kernels``: None picks the path with ``choose_step_path``; True or
+    False forces the kernel path or the eager path (on CPU tensors the
+    kernel path runs the kernels' plain versions).
+    """
+
+    def __init__(self, case: Case, device=None, use_kernels: bool = None,
+                 n_devices: int = 1):
+        p = case.params
+        check_supported(p, n_devices)
+        if device is None:
+            device = "cuda" if torch.cuda.is_available() else "cpu"
+        self.device = torch.device(device)
+        if use_kernels is None:
+            use_kernels, self.path_reason = choose_step_path(
+                self.device.type, p.dtype, p.uniform_mesh, n_devices)
+        else:
+            self.path_reason = "chosen by the caller"
+        self.use_kernels = use_kernels
+        self.case = case
+        self.params = p
+        dtype = p.torch_dtype
+        dev = self.device
+        self.meta = meta_from_grid(case.grid, dtype=dtype, device=dev)
+        self.chem = chem_tables_device(case.chem, dtype, dev)
+        self.state = state_from_grid(case.grid, p, case.dt0, device=dev)
+        self._src_ext = torch.as_tensor(case.grid.Src, dtype=dtype,
+                                        device=dev)
+
+        def tab(t):
+            return (torch.as_tensor(np.asarray(t.x), dtype=dtype, device=dev),
+                    torch.as_tensor(np.asarray(t.y), dtype=dtype, device=dev))
+
+        self.beta_tab = tab(case.beta_scenario)
+        self.cfl_tab = tab(case.cfl_scenario)
+        self.last_iter = 0
+        self.global_time = float(case.deck.get_float("InitTime", 0.0,
+                                                     required=False))
+        self.current_time_part = 0.0
+        self.stats = RunStats()
+
+        # initial FillNode2D(0,1): fluxes + turbulence init, once
+        # (deeps2d_core.cpp:4565)
+        self.state = fill_node(
+            self.state, self.meta, p,
+            torch.zeros((p.MaxX, p.MaxY), dtype=torch.bool, device=dev),
+            is_init=True)
+
+        if use_kernels:
+            g = case.grid
+            spec_map = generic_interior_map(g.CT, g.TCT, g.idXl, g.idXr,
+                                            g.idYu, g.idYd, p)
+            self._chunk_fn = make_kernel_chunk(
+                self.meta, p, self.chem, self.beta_tab, self.cfl_tab,
+                p.TurbStartIter, spec_map=spec_map)
+            self.fused = self._chunk_fn.step
+        else:
+            probe_idx = tuple(self._probe_index(mp.x, mp.y)
+                              for mp in case.monitor_points)
+            self._chunk_fn = make_fast_chunk(
+                self.meta, p, self.chem, self.beta_tab, self.cfl_tab,
+                p.TurbStartIter, probe_idx=probe_idx)
+            self.fused = None
+
+    def run_iters(self, n_iters: int):
+        """Run ``n_iters`` inner iterations; returns the stacked diagnostics
+        as numpy arrays (reading them waits for the device)."""
+        state, diags = self._chunk_fn(self.state, n_iters, self.last_iter,
+                                      self._src_ext)
+        self.state = state
+        self.last_iter += n_iters
+        diags = {k: v.cpu().numpy() for k, v in diags.items()}
+        self.current_time_part += float(diags["dt_used"].sum())
+        return diags
+
+    def run_cycle(self):
+        """One outer cycle = Nstep inner iterations + host-side bookkeeping.
+        Returns (diags, seconds)."""
+        t0 = time.time()
+        diags = self.run_iters(self.case.Nstep)
+        dt_wall = time.time() - t0
+        self.global_time += self.current_time_part
+        self.current_time_part = 0.0
+        self.stats.iters = self.last_iter
+        self.stats.steps_per_sec = self.case.Nstep / max(dt_wall, 1e-9)
+        self.stats.unstable = bool(diags["unstable"].any())
+        ovr = diags.get("dt_overrun")
+        self.stats.dt_overrun = bool(ovr.any()) if ovr is not None else False
+        if self.params.sm == fl.SM_NS and len(self.case.wall_nodes):
+            self.recalc_y_plus()
+        return diags, dt_wall
+
+    def recalc_y_plus(self):
+        """Per-cycle y+ update on the device (ParallelRecalc_y_plus,
+        deeps2d_core.cpp:1649-1677 + 2260-2322): friction velocity on every
+        wall node, broadcast to every node by its nearest-wall index with
+        one flat gather."""
+        p = self.params
+        st, m = self.state, self.meta
+        S0 = st.S[fl.i2d_Rho]
+        ct = m.CT
+        wall = (iscond(ct, fl.CT_WALL_NO_SLIP_2D)
+                | iscond(ct, fl.CT_WALL_LAW_2D))
+        solid = iscond(ct, fl.CT_SOLID_2D)
+        active = iscond(ct, fl.CT_NODE_IS_SET_2D) & ~solid
+        tau_w = (torch.abs(st.dUdy) + torch.abs(st.dVdx)) * st.mu
+        rho_s = torch.where(S0 != 0, S0, 1)
+        u_w = torch.sqrt(torch.where(S0 != 0, tau_w / rho_s, 0.0) + 1e-30)
+        u_map = torch.where(wall & ~solid, u_w, 0.0)
+        idx = (m.i_wall.long() * p.MaxY + m.j_wall.long()).reshape(-1)
+        u_at = u_map.reshape(-1)[idx].reshape(S0.shape)
+        mu_s = torch.where(st.mu != 0, st.mu, 1)
+        yp = torch.abs(u_at * m.l_min * S0 / mu_s)
+        self.state = st.replace(y_plus=torch.where(active, yp, st.y_plus))
+
+    # ------------------------------------------------------------------
+    def monitor_condition(self, diags) -> bool:
+        """Exit test (deeps2d_core.cpp:1870-1883): continue while true."""
+        mi = self.case.MonitorIndex
+        emv = self.case.ExitMonitorValue
+        rms = np.asarray(diags["RMS"])[-1]     # last iteration of the cycle
+        if mi == 5:
+            return self.global_time < emv
+        if mi == 0:
+            return float(rms.max()) > emv
+        return float(rms[mi - 1]) > emv
+
+    def max_rms(self, diags):
+        rms = np.asarray(diags["RMS"])[-1]
+        mi = self.case.MonitorIndex
+        if mi == 0 or mi > 4:
+            return float(rms.max()), int(rms.argmax())
+        return float(rms[mi - 1]), mi - 1
+
+    def host_state(self) -> dict:
+        """The dynamic state as numpy arrays, {field: array}."""
+        return {k: v.detach().cpu().contiguous().numpy()
+                for k, v in self.state.__dict__.items()}
+
+    def _probe_index(self, x: float, y: float):
+        p = self.params
+        i = int((x - p.dx * 0.5) / p.dx)
+        j = int(y / p.dy)
+        return (min(max(i, 0), p.MaxX - 1), min(max(j, 0), p.MaxY - 1))
