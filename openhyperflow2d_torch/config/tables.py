@@ -1,19 +1,76 @@
-"""Piecewise-linear property tables on torch tensors.
+"""Piecewise-linear property tables.
 
-The host-side :class:`Table` (reference ``Table::GetVal`` semantics) is
-imported from the JAX package, which keeps it numpy-only.  This module adds
-the tensor form of ``openhyperflow2d_tpu.config.tables.table_lookup`` with
-the same branch order and the same arithmetic, so float64 results are
-bitwise equal to the JAX version.
+The host-side :class:`Table` (reference ``Table::GetVal`` semantics,
+obj_data/obj_data.cpp:1822-1859) is the port's copy of the JAX package's
+numpy class, and :func:`table_lookup` is the tensor form of
+``openhyperflow2d_tpu.config.tables.table_lookup`` with the same branch
+order and the same arithmetic, so float64 results are bitwise equal to the
+JAX version.
+
+Exact reference semantics (deliberately preserved, including quirks):
+
+* single-row tables return ``y[0]``;
+* ``x <= x[0]``  -> linear extrapolation on the first segment (i = 1);
+* ``x >= x[n-1]`` -> linear extrapolation on the last segment (i = n-1);
+* otherwise the first ascending bracket ``x[i-1] <= x < x[i]`` wins.  Tables
+  stored in descending order (several shipped decks do this, e.g. ``lam_OX``)
+  therefore always resolve through the two boundary checks;
+* the "zero table" singleton always returns 0 (obj_data.cpp:1678).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
+
+import numpy as np
 import torch
 
-from openhyperflow2d_tpu.config.tables import Table
-
 __all__ = ["Table", "table_lookup"]
+
+
+@dataclass
+class Table:
+    """Host-side (x, y) table with reference-exact interpolation."""
+
+    x: np.ndarray
+    y: np.ndarray
+    name: str = ""
+    is_zero: bool = field(default=False)
+
+    @classmethod
+    def zero(cls) -> "Table":
+        return cls(np.zeros(1), np.zeros(1), name="ZeroTable", is_zero=True)
+
+    @classmethod
+    def constant(cls, value: float, name: str = "") -> "Table":
+        return cls(np.zeros(1), np.asarray([value], dtype=np.float64),
+                   name=name)
+
+    @property
+    def n(self) -> int:
+        return int(self.x.shape[0])
+
+    def get_val(self, q: float) -> float:
+        """Scalar ``Table::GetVal`` (obj_data.cpp:1822-1859)."""
+        if self.is_zero:
+            return 0.0
+        x, y, n = self.x, self.y, self.n
+        if n == 1:
+            return float(y[0])
+        if q <= x[0]:
+            i = 1
+        elif q >= x[n - 1]:
+            i = n - 1
+        else:
+            i = n - 1
+            for k in range(1, n):
+                if x[k - 1] <= q < x[k]:
+                    i = k
+                    break
+        return float(y[i] + (y[i - 1] - y[i]) * (q - x[i]) / (x[i - 1] - x[i]))
+
+    def __call__(self, q: float) -> float:
+        return self.get_val(q)
 
 
 def table_lookup(xs, ys, q, ascending: bool = False):

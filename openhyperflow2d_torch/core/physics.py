@@ -7,9 +7,10 @@ Every per-node branch is a ``torch.where`` mask, with the operation order of
 the JAX version kept so float64 results agree to rounding.
 
 Ported closures: standard k-eps (``TEM_k_eps_Std``) with its wall
-treatment.  The other closures and the conjugate wall-heat stage are not
-ported yet; ``check_supported`` (solver/runner.py) refuses such cases
-before anything runs.
+treatment, and the conjugate wall-heat stage of non-adiabatic walls
+(``calc_heat_on_wall_sources``).  The other closures are not ported yet;
+``check_supported`` (solver/runner.py) refuses such cases before anything
+runs.
 """
 
 from __future__ import annotations
@@ -17,11 +18,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from openhyperflow2d_tpu.core import flags as fl
-
 from ..config.tables import table_lookup
+from . import flags as fl
 from .state import ChemTables, GridMeta, SolverParams, SolverState
-from .static_ctx import StaticCtx, build_static_ctx, iscond
+from .static_ctx import (StaticCtx, _sxl, _sxr, _syd, _syu,
+                         build_static_ctx, iscond)
 
 TURB_INTENSITY = 0.005   # FlowNodeTurbulence2D::I (hyper_flow_turbulence.hpp:135)
 
@@ -425,3 +426,71 @@ def calc_chemical_reactions(state: SolverState, meta: GridMeta,
         R=wsel(active, R_new, state.R), CP=wsel(active, CP_new, state.CP),
         lam=wsel(active, lam_new, state.lam),
         mu=wsel(active, mu_new, state.mu))
+
+
+def calc_heat_on_wall_sources(state: SolverState, meta: GridMeta,
+                              params: SolverParams,
+                              ctx: StaticCtx = None) -> SolverState:
+    """CalcHeatOnWallSources (deeps2d_core.cpp:2679-2833): conjugate wall
+    heat flux for non-adiabatic walls.
+
+    Every wall (no-slip / wall-law) gas node with a solid neighbor deposits
+    a convective flux Q = -lam_eff (T_solid - T_gas)/d on the solid node and
+    receives SrcAdd[rhoE] = -dt Q / d.  The C++ visits gas nodes in (i,j)
+    scan order and averages when a solid node is hit twice (Q>0 test); the
+    fold below reproduces that exact visit order per solid node
+    [(I-1,J) right-facing, (I,J-1) up, (I,J+1) down, (I+1,J) left].
+    lam_eff is the wall node's own lam + lam_t (the reference's extra
+    neighbor term is dead code).  Without a ctx the visit masks are
+    computed here from CT with the same shifts.
+    """
+    p = params
+    dt_ = state.dt
+    if ctx is not None:
+        solid = ctx.solid
+        wall = band(bnot(solid), ctx.wall)
+    else:
+        ct = meta.CT
+        solid = iscond(ct, fl.CT_SOLID_2D)
+        wall = (~solid & (iscond(ct, fl.CT_WALL_LAW_2D)
+                          | iscond(ct, fl.CT_WALL_NO_SLIP_2D)))
+    lam_eff = state.lam + state.lam_t
+    Tg = state.Tg
+
+    if ctx is not None:
+        pres = (ctx.hv_xl, ctx.hv_yd, ctx.hv_yu, ctx.hv_xr)
+    else:
+        pres = (solid & _sxl(wall), solid & _syd(wall),
+                solid & _syu(wall), solid & _sxr(wall))
+    visitors = []
+    for shift_in, d, present in ((_sxl, p.dx, pres[0]),   # gas at I-1
+                                 (_syd, p.dy, pres[1]),   # gas at J-1
+                                 (_syu, p.dy, pres[2]),   # gas at J+1
+                                 (_sxr, p.dx, pres[3])):  # gas at I+1
+        c = -shift_in(lam_eff) * (Tg - shift_in(Tg)) / d
+        visitors.append((present, c))
+
+    q = torch.zeros_like(Tg)
+    q_after = []
+    for present, c in visitors:
+        q = wsel(present, torch.where(q > 0.0, (q + c) * 0.5, c), q)
+        q_after.append(q)
+
+    # SrcAdd[rhoE] per gas node: directions processed D, U, L, R — the last
+    # solid direction wins; each reads the solid's Q right after this gas
+    # node's own visit (the q_after rank of that (solid, visitor) pair)
+    src_e = state.SrcAdd[fl.i2d_RhoE]
+    if ctx is not None:
+        down_solid, up_solid = ctx.hw_down, ctx.hw_up
+        left_solid, right_solid = ctx.hw_left, ctx.hw_right
+    else:
+        down_solid, up_solid = wall & _syd(solid), wall & _syu(solid)
+        left_solid, right_solid = wall & _sxl(solid), wall & _sxr(solid)
+    src_e = wsel(down_solid, -dt_ * _syd(q_after[2]) / p.dy, src_e)
+    src_e = wsel(up_solid, -dt_ * _syu(q_after[1]) / p.dy, src_e)
+    src_e = wsel(left_solid, -dt_ * _sxl(q_after[3]) / p.dx, src_e)
+    src_e = wsel(right_solid, -dt_ * _sxr(q_after[0]) / p.dx, src_e)
+
+    src_add = torch.stack([state.SrcAdd[e] if e != fl.i2d_RhoE else src_e
+                           for e in range(fl.NUM_EQ)])
+    return state.replace(SrcAdd=src_add, Q_conv=q)

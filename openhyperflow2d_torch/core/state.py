@@ -23,9 +23,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from openhyperflow2d_tpu.core import flags as fl
-
 from ..config.tables import Table
+from . import flags as fl
 
 
 @dataclass

@@ -19,7 +19,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from openhyperflow2d_tpu.core import flags as fl
+from . import flags as fl
 
 
 def _i32(flag: int) -> int:

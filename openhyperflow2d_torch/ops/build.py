@@ -30,12 +30,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # spec, consts, cin, cout, scr, idn, mf, ctx, chemf, chemi, dt, aux,
-    # tiles, n_tiles, part_i, stream
-    "hf2d_gfc": [_I] + [_P] * 12 + [_I, _P, _P],
-    # spec, consts, cin, cout, scr, idn, ctx, dt, aux, tiles, n_tiles,
-    # part_f, stream
-    "hf2d_pass12": [_I] + [_P] * 9 + [_I, _P, _P],
+    # body, consts, cin, cout, scr, idn, mf, ctx, chemf, chemi, dt, aux,
+    # tiles, n_tiles, flags, part_i, stream
+    "hf2d_gfc": [_I] + [_P] * 12 + [_I, _P, _P, _P],
+    # body, consts, cin, cout, scr, idn, ctx, dt, aux, tiles, n_tiles,
+    # flags, part_f, stream
+    "hf2d_pass12": [_I] + [_P] * 9 + [_I, _P, _P, _P],
+    # consts, cout, scr, ctx, dt, tiles, n_tiles, stream
+    "hf2d_heat": [_P] * 6 + [_I, _P],
 }
 
 

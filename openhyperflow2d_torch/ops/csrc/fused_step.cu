@@ -1,18 +1,26 @@
 // Fused solver iteration for Hopper (sm_90a), float32:
 //
-//   gfc_kernel<SPEC>     gradients -> FillNode2D (k-eps) -> dt field ->
+//   gfc_kernel<BODY>     gradients -> FillNode2D (k-eps) -> dt field ->
 //                        Zeldovich chemistry, one thread per node
-//   pass12_kernel<SPEC>  pass 1 (blending update) + pass 2 (residual,
+//   heat_kernel          conjugate wall heat (CalcHeatOnWallSources) of
+//                        non-adiabatic walls, one thread per node of the
+//                        heat tiles
+//   pass12_kernel<BODY>  pass 1 (blending update) + pass 2 (residual,
 //                        blending factor, commit), one thread per node
 //
 // Replaces the TPU kernel openhyperflow2d_tpu/ops/pallas_step.py
 // _machinery.make_fused: its "general" body (lines 456-722, the packed-ctx
-// decode) is SPEC=false, its "spec" body (line 719-720, every mask a
-// constant of specialized_interior_ctx) is SPEC=true.  The TPU kernel ran
-// gfc and pass12 of one tile window in VMEM; here the two stages are two
+// decode, including the wall-heat stage of gfc) is BODY_GENERAL, its
+// "spec" body (line 719-720, every mask a constant of
+// specialized_interior_ctx) is BODY_SPEC, its "dual" body (lines 702-718,
+// both bodies switched per tile by a flag) is BODY_DUAL, and its scatter
+// form (scatter_n, lines 506-510: a 1-D grid over a tile table) is the
+// BODY_GENERAL launch over an arbitrary device tile list.  The TPU kernel
+// ran gfc and pass12 of one tile window in VMEM; here the stages are
 // launches over the whole grid, because every mask on this path is read at
 // the node being computed and the only neighbor reads are the +-1 stencils
-// of the gradients (S, U, V, Tg) and of pass 1 (S, A, B).
+// of the gradients (S, U, V, Tg) and of pass 1 (S, A, B), and the +-2
+// reach of the heat stage.
 //
 // What bounds it on an H100: memory traffic.  Per node and iteration, in
 // float32, with each plane read from memory once (neighbor reads hit the
@@ -28,6 +36,13 @@
 // per-equation state in registers, and writes partial reductions per tile
 // (no atomics, so the diagnostics are deterministic).  The scratch round
 // trip is what a single fused launch per iteration would remove.
+//
+// heat_kernel reads the one ctx word that holds the heat bits (4 bytes) at
+// every node of the heat tiles, and Tg, lam_eff and the SrcAdd write only
+// at the wall gas nodes and their solid neighbors (+-2 around the wall): at
+// 2048^2 that is a few dozen tiles, so its time is the launch.  The dual
+// form trades the second launch of each stage for one kernel holding both
+// bodies, whose register budget is the larger body's; CTA b runs tile b.
 //
 // Jacobi semantics: gfc_kernel reads the carry `cin` at +-1 and writes new
 // primitives into the other carry buffer `cout`; pass12_kernel reads the
@@ -62,7 +77,14 @@ struct Consts {
     float hu[4];           // heats of formation (fuel, ox, cp, air)
     int X, Y, nby;         // grid extent, tiles along j
     int has_walls, fast_math, bff, alt_rms, serial_rms, zeldovich;
+    int heat;              // the heat stage runs: gfc writes lam_eff,
+                           // pass12 adds SrcAdd of rhoE
 };
+
+// kernel bodies (ops/fused_step.py _BODY_CODE)
+constexpr int BODY_GENERAL = 0;
+constexpr int BODY_SPEC = 1;
+constexpr int BODY_DUAL = 2;
 
 __device__ __forceinline__ bool ctx_bit(const uint32_t* w, int b) {
     return (w[b >> 5] >> (b & 31)) & 1u;
@@ -353,7 +375,8 @@ __device__ __forceinline__ void gfc_node(
     const float Tg_new = RR != 0.f ? p_new / RR : 0.f;
 
     // effective transport and viscous/convective fluxes (hpp:494-598)
-    const float lam_t = mu_t * CP;
+    // rounded on its own (no contraction): lam_eff below is lam + lam_t
+    const float lam_t = __fmul_rn(mu_t, CP);
     const float sig = wall ? c.sig_w : c.sig_f;
     const float mu_eff = is_mu_t ? fmaxf(0.f, mu + mu_t * sig) : mu;
     const float lam_eff = is_mu_t ? fmaxf(0.f, lam + lam_t * sig) : lam;
@@ -474,6 +497,12 @@ __device__ __forceinline__ void gfc_node(
     cout[CARRY_LAM * P + n] = active ? lam_new : lam;
     cout[CARRY_MU * P + n] = active ? mu_new : mu;
     cout[CARRY_MU_T * P + n] = guard ? mu_t : mu_t0;
+    // what the heat stage reads: lam after chemistry + lam_t (with the CP
+    // before chemistry, physics.py fill_node), as core/step.gfc leaves them
+    if (!SPEC && c.heat)
+        scr[SCR_LAM_EFF * P + n] =
+            __fadd_rn(active ? lam_new : lam,
+                      guard ? lam_t : __fmul_rn(mu_t0, CP));
 }
 
 // ---------------------------------------------------------------------------
@@ -517,6 +546,8 @@ __device__ __forceinline__ void pass12_node(
                         : e == 8 ? scr[SCR_SRC_EPS * P + n] : 0.f;
         float next = S_eff * beta + (F(1.0) - beta) * blend
                      - (dtdx * dSdx + dtdy * dSdy) + src * dt;
+        if (!SPEC && c.heat && e == 3)
+            next = next + scr[SCR_SRCADD_E * P + n];   // + SrcAdd
         if (!evolve) next = S_eff;
 
         // pass 2: residual and blending factor (1062-1121)
@@ -550,7 +581,93 @@ __device__ __forceinline__ void pass12_node(
     }
 }
 
-template <bool SPEC>
+// ---------------------------------------------------------------------------
+// heat: core/physics.calc_heat_on_wall_sources for one node.  Solid node s
+// folds the fluxes of its wall gas neighbors in the reference's visit
+// order [(I-1,J), (I,J-1), (I,J+1), (I+1,J)], averaging when it is hit
+// again (q > 0); `upto` stops the fold after that visit (q_after[upto]).
+// Neighbors are clamped to the grid, as the edge-replicated shifts are.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ bool heat_bit(uint32_t w, int b) {
+    return (w >> (b - 32 * CTX_HEAT_WORD)) & 1u;
+}
+
+__device__ __forceinline__ uint32_t heat_word(const int32_t* __restrict__ ctxw,
+                                              size_t P, size_t n) {
+    return static_cast<uint32_t>(ctxw[CTX_HEAT_WORD * P + n]);
+}
+
+__device__ __forceinline__ float heat_q(const Consts& c,
+                                        const float* __restrict__ cout,
+                                        const float* __restrict__ scr,
+                                        const int32_t* __restrict__ ctxw,
+                                        size_t P, int i, int j, int upto) {
+    const size_t s = static_cast<size_t>(i) * c.Y + j;
+    const uint32_t w = heat_word(ctxw, P, s);
+    const float Ts = cout[CARRY_TG * P + s];
+    const int vi[4] = {max(i - 1, 0), i, i, min(i + 1, c.X - 1)};
+    const int vj[4] = {j, max(j - 1, 0), min(j + 1, c.Y - 1), j};
+    const float vd[4] = {c.dx, c.dy, c.dy, c.dx};
+    const int vbit[4] = {CTX_HV_XL, CTX_HV_YD, CTX_HV_YU, CTX_HV_XR};
+    float q = 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        if (k > upto) break;
+        if (!heat_bit(w, vbit[k])) continue;
+        const size_t g = static_cast<size_t>(vi[k]) * c.Y + vj[k];
+        const float cq = (-scr[SCR_LAM_EFF * P + g]
+                          * (Ts - cout[CARRY_TG * P + g])) / vd[k];
+        q = q > 0.f ? (q + cq) * F(0.5) : cq;
+    }
+    return q;
+}
+
+__global__ void __launch_bounds__(TILE_X * TILE_Y)
+heat_kernel(const Consts c, const float* __restrict__ cout,
+            float* __restrict__ scr, const int32_t* __restrict__ ctxw,
+            const float* __restrict__ dtp,
+            const int32_t* __restrict__ tiles) {
+    const int tile = tiles[blockIdx.x];
+    const int i = (tile / c.nby) * TILE_X + threadIdx.y;
+    const int j = (tile % c.nby) * TILE_Y + threadIdx.x;
+    if (i >= c.X || j >= c.Y) return;
+    const size_t P = static_cast<size_t>(c.X) * c.Y;
+    const size_t n = static_cast<size_t>(i) * c.Y + j;
+    const uint32_t w = heat_word(ctxw, P, n);
+    // directions D, U, L, R, the last solid one wins; each reads the
+    // solid's q right after this gas node's own visit of it
+    const float ndt = -*dtp;
+    float src;
+    if (heat_bit(w, CTX_HW_RIGHT))
+        src = ndt * heat_q(c, cout, scr, ctxw, P, min(i + 1, c.X - 1), j, 0)
+              / c.dx;
+    else if (heat_bit(w, CTX_HW_LEFT))
+        src = ndt * heat_q(c, cout, scr, ctxw, P, max(i - 1, 0), j, 3) / c.dx;
+    else if (heat_bit(w, CTX_HW_UP))
+        src = ndt * heat_q(c, cout, scr, ctxw, P, i, min(j + 1, c.Y - 1), 1)
+              / c.dy;
+    else if (heat_bit(w, CTX_HW_DOWN))
+        src = ndt * heat_q(c, cout, scr, ctxw, P, i, max(j - 1, 0), 2) / c.dy;
+    else
+        return;   // the plane keeps the chunk's zero
+    scr[SCR_SRCADD_E * P + n] = src;
+}
+
+// The dual body runs every tile (CTA b on tile b) and reads its tile's flag
+// once per CTA (uniform branch); the other bodies run their tile list.
+template <int BODY>
+__device__ __forceinline__ int cta_tile(const int32_t* __restrict__ tiles) {
+    return BODY == BODY_DUAL ? static_cast<int>(blockIdx.x)
+                             : tiles[blockIdx.x];
+}
+
+template <int BODY>
+__device__ __forceinline__ bool spec_tile(const int32_t* __restrict__ flags,
+                                          int tile) {
+    return BODY == BODY_DUAL ? flags[tile] != 0 : BODY == BODY_SPEC;
+}
+
+template <int BODY>
 __global__ void __launch_bounds__(TILE_X * TILE_Y)
 gfc_kernel(const Consts c, const float* __restrict__ cin,
            float* __restrict__ cout, float* __restrict__ scr,
@@ -558,14 +675,19 @@ gfc_kernel(const Consts c, const float* __restrict__ cin,
            const int32_t* __restrict__ ctxw, const float* __restrict__ chemf,
            const int32_t* __restrict__ chemi, const float* __restrict__ dtp,
            const float* __restrict__ aux, const int32_t* __restrict__ tiles,
-           int32_t* __restrict__ part_i) {
-    const int tile = tiles[blockIdx.x];
+           const int32_t* __restrict__ flags, int32_t* __restrict__ part_i) {
+    const int tile = cta_tile<BODY>(tiles);
     const int i = (tile / c.nby) * TILE_X + threadIdx.y;
     const int j = (tile % c.nby) * TILE_Y + threadIdx.x;
     bool uns = false, ovr = false;
-    if (i < c.X && j < c.Y)
-        gfc_node<SPEC>(c, cin, cout, scr, idn, mf, ctxw, chemf, chemi, *dtp,
-                       aux[1], aux[2] > F(0.5), i, j, uns, ovr);
+    if (i < c.X && j < c.Y) {
+        if (spec_tile<BODY>(flags, tile))
+            gfc_node<true>(c, cin, cout, scr, idn, mf, ctxw, chemf, chemi,
+                           *dtp, aux[1], aux[2] > F(0.5), i, j, uns, ovr);
+        else
+            gfc_node<false>(c, cin, cout, scr, idn, mf, ctxw, chemf, chemi,
+                            *dtp, aux[1], aux[2] > F(0.5), i, j, uns, ovr);
+    }
     const int n_uns = __syncthreads_count(uns);
     const int n_ovr = __syncthreads_count(ovr);
     if (threadIdx.x == 0 && threadIdx.y == 0) {
@@ -574,25 +696,31 @@ gfc_kernel(const Consts c, const float* __restrict__ cin,
     }
 }
 
-template <bool SPEC>
+template <int BODY>
 __global__ void __launch_bounds__(TILE_X * TILE_Y)
 pass12_kernel(const Consts c, const float* __restrict__ cin,
               float* __restrict__ cout, const float* __restrict__ scr,
               const int8_t* __restrict__ idn,
               const int32_t* __restrict__ ctxw,
               const float* __restrict__ dtp, const float* __restrict__ aux,
-              const int32_t* __restrict__ tiles, float* __restrict__ part_f) {
+              const int32_t* __restrict__ tiles,
+              const int32_t* __restrict__ flags, float* __restrict__ part_f) {
     constexpr int NQ = 27;   // RMS numerator, denominator, DD max x 9
     __shared__ float red[TILE_X][NQ];
-    const int tile = tiles[blockIdx.x];
+    const int tile = cta_tile<BODY>(tiles);
     const int i = (tile / c.nby) * TILE_X + threadIdx.y;
     const int j = (tile % c.nby) * TILE_Y + threadIdx.x;
     float acc[NQ];
 #pragma unroll
     for (int q = 0; q < NQ; ++q) acc[q] = 0.f;
-    if (i < c.X && j < c.Y)
-        pass12_node<SPEC>(c, cin, cout, scr, idn, ctxw, *dtp, aux[0], i, j,
-                          acc);
+    if (i < c.X && j < c.Y) {
+        if (spec_tile<BODY>(flags, tile))
+            pass12_node<true>(c, cin, cout, scr, idn, ctxw, *dtp, aux[0], i,
+                              j, acc);
+        else
+            pass12_node<false>(c, cin, cout, scr, idn, ctxw, *dtp, aux[0], i,
+                               j, acc);
+    }
     // tile partials in a fixed order: lanes of a warp (one row of the
     // tile), then the TILE_X warps in row order
 #pragma unroll
@@ -618,15 +746,18 @@ pass12_kernel(const Consts c, const float* __restrict__ cin,
 // ---------------------------------------------------------------------------
 // C entry points (loaded with ctypes by ops/build.py).  Each launches one
 // instantiation over `n_tiles` tiles of the device tile list `tiles` on
-// `stream` and returns cudaGetLastError().
+// `stream` and returns cudaGetLastError().  `body` is BODY_*; the dual
+// body reads no tile list (`tiles` may be null, `n_tiles` is every tile)
+// and reads `flags` (int32 per tile id, 1 = spec), which the others
+// ignore.
 // ---------------------------------------------------------------------------
 extern "C" {
 
-int hf2d_gfc(int spec, const void* consts, const void* cin, void* cout,
+int hf2d_gfc(int body, const void* consts, const void* cin, void* cout,
              void* scr, const void* idn, const void* mf, const void* ctxw,
              const void* chemf, const void* chemi, const void* dt,
-             const void* aux, const void* tiles, int n_tiles, void* part_i,
-             void* stream) {
+             const void* aux, const void* tiles, int n_tiles,
+             const void* flags, void* part_i, void* stream) {
     const Consts c = *static_cast<const Consts*>(consts);
     const dim3 block(TILE_Y, TILE_X);
     auto s = static_cast<cudaStream_t>(stream);
@@ -637,19 +768,21 @@ int hf2d_gfc(int spec, const void* consts, const void* cin, void* cout,
         static_cast<const float*>(chemf),                                   \
         static_cast<const int32_t*>(chemi), static_cast<const float*>(dt), \
         static_cast<const float*>(aux), static_cast<const int32_t*>(tiles), \
-        static_cast<int32_t*>(part_i)
-    if (spec)
-        gfc_kernel<true><<<n_tiles, block, 0, s>>>(HF2D_GFC_ARGS);
+        static_cast<const int32_t*>(flags), static_cast<int32_t*>(part_i)
+    if (body == BODY_SPEC)
+        gfc_kernel<BODY_SPEC><<<n_tiles, block, 0, s>>>(HF2D_GFC_ARGS);
+    else if (body == BODY_DUAL)
+        gfc_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(HF2D_GFC_ARGS);
     else
-        gfc_kernel<false><<<n_tiles, block, 0, s>>>(HF2D_GFC_ARGS);
+        gfc_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(HF2D_GFC_ARGS);
 #undef HF2D_GFC_ARGS
     return static_cast<int>(cudaGetLastError());
 }
 
-int hf2d_pass12(int spec, const void* consts, const void* cin, void* cout,
+int hf2d_pass12(int body, const void* consts, const void* cin, void* cout,
                 const void* scr, const void* idn, const void* ctxw,
                 const void* dt, const void* aux, const void* tiles,
-                int n_tiles, void* part_f, void* stream) {
+                int n_tiles, const void* flags, void* part_f, void* stream) {
     const Consts c = *static_cast<const Consts*>(consts);
     const dim3 block(TILE_Y, TILE_X);
     auto s = static_cast<cudaStream_t>(stream);
@@ -658,12 +791,27 @@ int hf2d_pass12(int spec, const void* consts, const void* cin, void* cout,
         static_cast<const float*>(scr), static_cast<const int8_t*>(idn),    \
         static_cast<const int32_t*>(ctxw), static_cast<const float*>(dt),   \
         static_cast<const float*>(aux), static_cast<const int32_t*>(tiles), \
-        static_cast<float*>(part_f)
-    if (spec)
-        pass12_kernel<true><<<n_tiles, block, 0, s>>>(HF2D_PASS12_ARGS);
+        static_cast<const int32_t*>(flags), static_cast<float*>(part_f)
+    if (body == BODY_SPEC)
+        pass12_kernel<BODY_SPEC><<<n_tiles, block, 0, s>>>(HF2D_PASS12_ARGS);
+    else if (body == BODY_DUAL)
+        pass12_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(HF2D_PASS12_ARGS);
     else
-        pass12_kernel<false><<<n_tiles, block, 0, s>>>(HF2D_PASS12_ARGS);
+        pass12_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
+            HF2D_PASS12_ARGS);
 #undef HF2D_PASS12_ARGS
+    return static_cast<int>(cudaGetLastError());
+}
+
+int hf2d_heat(const void* consts, const void* cout, void* scr,
+              const void* ctxw, const void* dt, const void* tiles,
+              int n_tiles, void* stream) {
+    const Consts c = *static_cast<const Consts*>(consts);
+    const dim3 block(TILE_Y, TILE_X);
+    heat_kernel<<<n_tiles, block, 0, static_cast<cudaStream_t>(stream)>>>(
+        c, static_cast<const float*>(cout), static_cast<float*>(scr),
+        static_cast<const int32_t*>(ctxw), static_cast<const float*>(dt),
+        static_cast<const int32_t*>(tiles));
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -62,6 +62,10 @@ constexpr int CTX_HW_LEFT = 125;
 constexpr int CTX_HW_RIGHT = 126;
 constexpr int CTX_N_BITS = 127;
 constexpr int CTX_N_WORDS = 4;
+// the word that holds every conjugate-heat bit (all heat_kernel reads)
+constexpr int CTX_HEAT_WORD = CTX_HV_XL / 32;
+static_assert(CTX_HW_RIGHT / 32 == CTX_HEAT_WORD,
+              "the hv_*/hw_* bits must share one ctx word");
 
 // ---- slim carry: (31, X, Y), SlimState field order ------------------------
 constexpr int CARRY_S = 0;      // 9 planes
@@ -78,13 +82,15 @@ constexpr int CARRY_MU = 29;
 constexpr int CARRY_MU_T = 30;
 constexpr int N_CARRY = 31;
 
-// ---- gfc -> pass12 scratch: (29, X, Y) ------------------------------------
+// ---- gfc -> heat -> pass12 scratch: (31, X, Y) ----------------------------
 constexpr int SCR_S = 0;        // 9 planes: post-fill, post-chemistry S
 constexpr int SCR_A = 9;        // 9 planes: x-flux
 constexpr int SCR_B = 18;       // 9 planes: y-flux
 constexpr int SCR_SRC_K = 27;   // turbulence sources (the only nonzero Src)
 constexpr int SCR_SRC_EPS = 28;
-constexpr int N_SCRATCH = 29;
+constexpr int SCR_LAM_EFF = 29;   // lam + lam_t after chemistry (gfc<general>)
+constexpr int SCR_SRCADD_E = 30;  // SrcAdd of rhoE (heat_kernel; 0 elsewhere)
+constexpr int N_SCRATCH = 31;
 
 // ---- meta planes ----------------------------------------------------------
 constexpr int META_IDXL = 0;    // int8 (4, X, Y): idXl, idXr, idYu, idYd

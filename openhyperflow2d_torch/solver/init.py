@@ -1,16 +1,15 @@
 """Case construction: deck -> host grid -> solver configuration.
 
-Counterpart of ``openhyperflow2d_tpu.solver.init`` without jax: the
-grid construction is the JAX package's numpy geometry code, imported as it
-is; this module rebuilds ``build_case`` around the port's SolverParams and
-ChemTables, so a case builds on a machine that has torch and no jax.  The
-build order mirrors ``InitSharedData`` / ``InitDEEPS2D``
+Counterpart of ``openhyperflow2d_tpu.solver.init`` without jax: the grid
+construction is the port's own copy of the JAX package's numpy geometry
+code (``geometry/``, ``gasdyn/``, ``config/deck``), and this module
+rebuilds ``build_case`` around the port's SolverParams and ChemTables, so a
+case builds on a machine that has torch and neither jax nor the JAX
+package.  The build order mirrors ``InitSharedData`` / ``InitDEEPS2D``
 (libDEEPS2D/deeps2d_core.cpp:160-499, 2835-4682).
 
 Not ported yet: swap-file resume and non-uniform meshes (``build_case``
-has no such options), and the solid primitives (rects, circles,
-airfoils), which raise NotImplementedError: their constructors in
-``geometry/solids`` import ``openhyperflow2d_tpu.solver.init`` and so jax.
+has no such options).
 """
 
 from __future__ import annotations
@@ -21,24 +20,20 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from openhyperflow2d_tpu.config.deck import Deck
-from openhyperflow2d_tpu.config.tables import Table
-from openhyperflow2d_tpu.core import flags as fl
-from openhyperflow2d_tpu.gasdyn.flow import FV_MACH, FV_VELOCITY, Flow, Flow2D
-from openhyperflow2d_tpu.geometry.areas import fill_area
-from openhyperflow2d_tpu.geometry.bounds import (Bound, BoundContour,
-                                                 parse_cond_string, set_bound,
-                                                 turb_model_id_to_tct)
-from openhyperflow2d_tpu.geometry.grid import HostGrid
-from openhyperflow2d_tpu.geometry.sources import (apply_sources,
-                                                  build_source_list)
-from openhyperflow2d_tpu.geometry.wall import (get_wall_nodes,
-                                               set_init_boundary_layer,
-                                               set_min_distance_to_wall,
-                                               set_nonreflected_bc,
-                                               set_wall_nodes)
-
+from ..config.deck import Deck
+from ..config.tables import Table
+from ..core import flags as fl
 from ..core.state import ChemTables, SolverParams
+from ..gasdyn.flow import FV_MACH, FV_VELOCITY, Flow, Flow2D
+from ..geometry.areas import fill_area
+from ..geometry.bounds import (Bound, BoundContour, parse_cond_string,
+                               set_bound, turb_model_id_to_tct)
+from ..geometry.grid import HostGrid
+from ..geometry.solids import add_airfoil, add_circle, add_rect
+from ..geometry.sources import apply_sources, build_source_list
+from ..geometry.wall import (get_wall_nodes, set_init_boundary_layer,
+                             set_min_distance_to_wall, set_nonreflected_bc,
+                             set_wall_nodes)
 
 Y_FUEL = (1.0, 0.0, 0.0, 0.0)
 Y_OX = (0.0, 1.0, 0.0, 0.0)
@@ -237,11 +232,6 @@ def build_case(deck: Deck, dtype: str = "float64",
                serial_rms_mode: bool = None) -> Case:
     """Build a Case from a deck (the JAX ``build_case`` without its
     swap-file resume and non-uniform-mesh options)."""
-    for key in ("NumRects", "NumCircles", "NumAirfoils"):
-        if deck.get_int(key, 0, required=False):
-            raise NotImplementedError(
-                f"{key} > 0: the solid primitives are not ported "
-                f"(geometry/solids reaches the JAX package's solver.init)")
     chem = load_chem_data(deck)
     MaxX = deck.get_int("MaxX")
     MaxY = deck.get_int("MaxY")
@@ -357,6 +347,14 @@ def build_case(deck: Deck, dtype: str = "float64",
     grid.NGX[:] = 0
     grid.NGY[:] = 0
     grid.Src[:] = 0.0
+
+    # ---- solid primitives (4000-4297) --------------------------------------
+    for i in range(1, deck.get_int("NumRects", 0, required=False) + 1):
+        add_rect(grid, deck, f"Rect{i}", flow_list, flow2d_list)
+    for i in range(1, deck.get_int("NumCircles", 0, required=False) + 1):
+        add_circle(grid, deck, f"Circle{i}", flow_list, flow2d_list)
+    for i in range(1, deck.get_int("NumAirfoils", 0, required=False) + 1):
+        add_airfoil(grid, deck, f"Airfoil{i}", flow_list, flow2d_list)
 
     # ---- areas (4298-4508) --------------------------------------------------
     # The reference flood fill runs a FULL FillNode2D(is_mu_t=1, is_init=0)

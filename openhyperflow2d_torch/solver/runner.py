@@ -15,13 +15,12 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from openhyperflow2d_tpu.core import flags as fl
-
+from ..core import flags as fl
 from ..core.physics import fill_node
 from ..core.state import meta_from_grid, state_from_grid
 from ..core.static_ctx import generic_interior_map, iscond
 from ..core.step import make_fast_chunk
-from ..ops.fused_step import make_kernel_chunk
+from ..ops.fused_step import DEFAULT_DISPATCH, make_kernel_chunk
 from .init import Case, chem_tables_device
 
 
@@ -66,8 +65,6 @@ def check_supported(params, n_devices: int = 1) -> None:
         missing.append("non-reflected boundary conditions")
     if p.has_ext_src:
         missing.append("external sources")
-    if p.has_walls and not p.isAdiabaticWall:
-        missing.append("non-adiabatic walls (conjugate wall heat)")
     if p.isSrcAdd:
         missing.append("moving-wall sources")
     if p.chemistry not in (fl.CRM_ZELDOVICH, fl.CRM_NO_REACTIONS):
@@ -94,18 +91,27 @@ class RunStats:
 class Solver:
     """Single-device solver.
 
-    ``device``: torch device (default: CUDA when available, else CPU).
+    ``device``: torch device; None means the GPU (``"cuda"``), and raises
+    when CUDA is absent.  The CPU runs only when the caller asks for it
+    (``device="cpu"``, as the tests do).
     ``use_kernels``: None picks the path with ``choose_step_path``; True or
     False forces the kernel path or the eager path (on CPU tensors the
     kernel path runs the kernels' plain versions).
+    ``dispatch``: how the kernel path issues its kernels,
+    ``"lists"`` or ``"dual"`` (ops/fused_step.DISPATCH_FORMS); None picks
+    ``DEFAULT_DISPATCH``.
     """
 
     def __init__(self, case: Case, device=None, use_kernels: bool = None,
-                 n_devices: int = 1):
+                 n_devices: int = 1, dispatch: str = None):
         p = case.params
         check_supported(p, n_devices)
         if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "Solver(device=None) runs on the GPU, and CUDA is not "
+                    "available; pass device=\"cpu\" to run on the CPU")
+            device = "cuda"
         self.device = torch.device(device)
         if use_kernels is None:
             use_kernels, self.path_reason = choose_step_path(
@@ -148,7 +154,8 @@ class Solver:
                                             g.idYu, g.idYd, p)
             self._chunk_fn = make_kernel_chunk(
                 self.meta, p, self.chem, self.beta_tab, self.cfl_tab,
-                p.TurbStartIter, spec_map=spec_map)
+                p.TurbStartIter, spec_map=spec_map,
+                dispatch=dispatch or DEFAULT_DISPATCH)
             self.fused = self._chunk_fn.step
         else:
             probe_idx = tuple(self._probe_index(mp.x, mp.y)

@@ -107,3 +107,38 @@ def test_tile_plan_ragged_edges(ny):
     assert not plan.spec[2].any()
     if ny % TILE[1]:
         assert not plan.spec[:, -1].any()
+
+
+def test_dispatch_forms_agree():
+    """dispatch="dual" (one launch per stage over all tiles, a per-tile
+    flag) and "lists" (one launch per body over its tile list) hold the
+    same tiles, and on CPU tensors give the same state bitwise.  On the
+    bluff-body deck the spec set has an interior hole, so the general list
+    is not the grid's frame."""
+    from openhyperflow2d_torch.examples import combustor_deck as tdeck
+    from openhyperflow2d_torch.solver.init import build_case
+    case = build_case(tdeck(64, 256, bluff_body=True))
+    runs = {}
+    for dispatch in ("lists", "dual"):
+        ts = Solver(case, device="cpu", use_kernels=True, dispatch=dispatch)
+        assert ts.fused.dispatch == dispatch
+        ts.run_iters(3)
+        runs[dispatch] = ts
+    a, b = runs["lists"].fused.plan, runs["dual"].fused.plan
+    ids = np.arange(a.n_tiles)
+    np.testing.assert_array_equal(a.flags.numpy(), a.spec.reshape(-1))
+    np.testing.assert_array_equal(b.flags.numpy(), a.flags.numpy())
+    assert b.launch_grid("dual") == (None, a.n_tiles)
+    np.testing.assert_array_equal(
+        np.sort(np.concatenate([a.spec_tiles.numpy(),
+                                a.general_tiles.numpy()])), ids)
+    for f in ("spec_tiles", "general_tiles", "heat_tiles"):
+        np.testing.assert_array_equal(getattr(a, f).numpy(),
+                                      getattr(b, f).numpy(), f)
+    sa, sb = runs["lists"].host_state(), runs["dual"].host_state()
+    for f, v in sa.items():
+        np.testing.assert_array_equal(v, sb[f], f)
+    assert runs["lists"].fused._bodies() == ["spec", "general"]
+    assert runs["dual"].fused._bodies() == ["dual"]
+    with pytest.raises(ValueError, match="dispatch"):
+        Solver(case, device="cpu", use_kernels=True, dispatch="rect")

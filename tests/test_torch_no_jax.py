@@ -1,7 +1,9 @@
-"""The port runs without jax: in a fresh interpreter where ``import jax``
-fails, build the combustor, run 3 eager iterations on the CPU, and check
-that no jax module was loaded.  This is what lets chip_smoke.py run on a
-machine that has torch and no jax."""
+"""The port runs without jax and without the JAX package: in a fresh
+interpreter where ``import jax`` and ``import openhyperflow2d_tpu`` fail,
+build the combustor and the walls+step+heat combustor with the port alone,
+run 3 eager iterations of each on the CPU, and check that no module of
+jax, jaxlib or the JAX package was loaded.  This is what lets
+chip_smoke.py run on a machine that has torch and no jax."""
 
 import json
 import os
@@ -13,23 +15,31 @@ REPO = Path(__file__).resolve().parents[1]
 
 SCRIPT = r"""
 import json, sys
-sys.modules["jax"] = None          # any import of jax now raises
+sys.modules["jax"] = None                  # any import of jax now raises
+sys.modules["openhyperflow2d_tpu"] = None  # and of the JAX package
 import numpy as np
 import torch
 torch.set_num_threads(2)
 from openhyperflow2d_torch.examples import combustor_deck
 from openhyperflow2d_torch.solver.init import build_case
 from openhyperflow2d_torch.solver.runner import Solver
-s = Solver(build_case(combustor_deck(32, 32)), device="cpu")
-d = s.run_iters(3)
-print(json.dumps({
-    "use_kernels": s.use_kernels,
-    "finite": bool(torch.isfinite(s.state.S).all()),
-    "unstable": bool(d["unstable"].any()),
-    "rms_shape": list(d["RMS"].shape),
-    "jax": sorted(m for m, v in sys.modules.items()
-                  if v is not None and m.split(".")[0] in ("jax", "jaxlib")),
-}))
+out = {}
+for name, deck in (("combustor", combustor_deck(32, 32)),
+                   ("step_heat", combustor_deck(32, 48, with_step=True,
+                                                adiabatic=False))):
+    s = Solver(build_case(deck), device="cpu")
+    d = s.run_iters(3)
+    out[name] = {
+        "use_kernels": s.use_kernels,
+        "finite": bool(torch.isfinite(s.state.S).all()),
+        "unstable": bool(d["unstable"].any()),
+        "rms_shape": list(d["RMS"].shape),
+        "heat": bool(s.state.Q_conv.abs().max() > 0),
+    }
+out["loaded"] = sorted(m for m, v in sys.modules.items()
+                       if v is not None and m.split(".")[0] in
+                       ("jax", "jaxlib", "openhyperflow2d_tpu"))
+print(json.dumps(out))
 """
 
 
@@ -39,5 +49,7 @@ def test_port_runs_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out == {"use_kernels": False, "finite": True, "unstable": False,
-                   "rms_shape": [3, 9], "jax": []}
+    run = {"use_kernels": False, "finite": True, "unstable": False,
+           "rms_shape": [3, 9]}
+    assert out == {"combustor": {**run, "heat": False},
+                   "step_heat": {**run, "heat": True}, "loaded": []}

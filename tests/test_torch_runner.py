@@ -7,6 +7,7 @@ configuration alone, and its kernel wrappers never fall back.
   NotImplementedError naming it, before anything runs.
 * The kernel wrappers run the plain version only for CPU tensors; a tensor on
   any other non-CUDA device raises instead of computing anything.
+* ``Solver()`` without a device runs on the GPU, and raises without CUDA.
 * ``monitor_condition``, ``max_rms``, ``node_masks`` and ``needs_y_plus``
   follow the JAX package.
 """
@@ -61,7 +62,7 @@ SUPPORTED = tstate.SolverParams(MaxX=8, MaxY=8, dx=1e-3, dy=1e-3,
     ({"has_d2y": True}, 1, "soft boundary conditions"),
     ({"has_nrbc": True}, 1, "non-reflected"),
     ({"has_ext_src": True}, 1, "external sources"),
-    ({"isAdiabaticWall": False}, 1, "non-adiabatic walls"),
+    ({"isSrcAdd": True}, 1, "moving-wall sources"),
     ({}, 2, "more than one GPU"),
 ])
 def test_check_supported_names_what_is_missing(change, n_devices, words):
@@ -94,9 +95,20 @@ def test_kernel_wrappers_do_not_fall_back(small_case):
                  torch.zeros((plan.n_tiles, 2), dtype=torch.int32,
                              device="meta"))
     with pytest.raises(ValueError, match="mixed devices"):
+        step.heat(cout, scr, dt)
+    with pytest.raises(ValueError, match="mixed devices"):
         step.pass12(cin, cout, scr, dt, aux,
                     torch.zeros((plan.n_tiles, 27), device="meta"))
     assert all(n == 0 for n in step.launches.values())
+
+
+def test_solver_runs_on_the_gpu_unless_asked(small_case, monkeypatch):
+    """Solver() without a device means the GPU: where CUDA is absent it
+    raises instead of carrying on on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Solver(small_case)
+    assert Solver(small_case, device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("mi", [0, 2, 5])
