@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-``load_kernels()`` compiles ``ops/csrc/*.cu`` with nvcc into one shared
-library with a plain C interface and loads it with ctypes.  The library goes
+``load_kernels()`` compiles ``ops/csrc/*.cu`` with nvcc, one process per
+source, all started together, links the objects into one shared library
+with a plain C interface and loads it with ctypes.  The library goes
 to ``build/hf2d_torch/<hash of the sources>/`` under the repository root,
 so an edited source rebuilds and an unchanged one is reused.  A failed build
 raises with nvcc's output; nothing falls back.
@@ -25,7 +26,7 @@ LIB_NAME = "libhf2d_kernels.so"
 # no --use_fast_math: division and sqrt must stay IEEE so the kernels stay
 # inside their plain versions' envelope
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +39,10 @@ _SIGNATURES = {
     "hf2d_pass12": [_I] + [_P] * 9 + [_I, _P, _P, _P],
     # consts, cout, scr, ctx, dt, tiles, n_tiles, stream
     "hf2d_heat": [_P] * 6 + [_I, _P],
+    # axis, wrap, x, out, X, Y, stream
+    "hf2d_shift_chain": [_I, _I, _P, _P, _I, _I, _P],
+    # op, x, out, n, stream
+    "hf2d_div_chain": [_I, _P, _P, _I, _P],
 }
 
 
@@ -83,19 +88,43 @@ def build() -> tuple[Path, float, str]:
         return lib_path, 0.0, log_path.read_text() if log_path.exists() \
             else ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sources if s.suffix == ".cu"]
+    nvcc = nvcc_path()
+    t0 = time.perf_counter()
+    # objects in a directory of this process's own: processes that build
+    # at once (the ranks of a multi-GPU run) never share a file
+    obj_dir = Path(tempfile.mkdtemp(dir=out_dir))
+    procs = []
+    for src in sources:
+        if src.suffix != ".cu":
+            continue
+        obj = obj_dir / f"{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+               str(src)]
+        procs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log = ""
+    failed = []
+    for cmd, _, proc in procs:
+        out = proc.communicate()[0]
+        log += out
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed (exit {proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}")
+    if failed:
+        shutil.rmtree(obj_dir, ignore_errors=True)
+        raise RuntimeError("\n".join(failed))
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-    t0 = time.perf_counter()
+    cmd = [nvcc, "-shared", "-o", tmp, *(str(o) for _, o, _ in procs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     secs = time.perf_counter() - t0
+    shutil.rmtree(obj_dir, ignore_errors=True)
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(
             f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
             f"{proc.stdout}\n{proc.stderr}")
-    log = proc.stdout + proc.stderr
     log_path.write_text(log)
     os.replace(tmp, lib_path)
     return lib_path, secs, log

@@ -44,6 +44,21 @@
 // form trades the second launch of each stage for one kernel holding both
 // bodies, whose register budget is the larger body's; CTA b runs tile b.
 //
+// The same launches are the counterpart of the multi-chip kernel
+// (openhyperflow2d_tpu/parallel/shard_step.py make_pallas_shard_chunk,
+// lines 256-381, with sharded_inner_overlap, 383-568): each X strip of the
+// multi-device path (openhyperflow2d_torch/parallel/shard_step.py) runs
+// them over its own rows plus H = 2 halo rows on each side, read straight
+// from the strip's compact carry with clamped indices, and the window
+// Consts::x0/x1 keeps the halo rows out of the partials.  What bounds one
+// iteration of a strip: the byte model above times the strip's nodes,
+// halo rows included ((X_loc + 2H) * Y: the 2H rows are recomputed, a
+// 2H / X_loc overhead), plus the halo exchange, 2 * 31 * H * Y * 4 bytes a
+// strip (the 31 carry planes, H rows each way): device copies over HBM
+// when the strips share a card, or NCCL over NVLink at 450 GB/s each way
+// between cards.  At 2048^2 in 4 strips that is 1.0 MB a strip against
+// ~0.5 GB of kernel traffic, so the exchange is latency, not bytes.
+//
 // Jacobi semantics: gfc_kernel reads the carry `cin` at +-1 and writes new
 // primitives into the other carry buffer `cout`; pass12_kernel reads the
 // scratch at +-1 and writes S and beta into `cout`.  The caller swaps the
@@ -79,6 +94,8 @@ struct Consts {
     int has_walls, fast_math, bff, alt_rms, serial_rms, zeldovich;
     int heat;              // the heat stage runs: gfc writes lam_eff,
                            // pass12 adds SrcAdd of rhoE
+    int x0, x1;            // window: only rows x0 <= i < x1 count in the
+                           // per-tile partials (a strip's own rows)
 };
 
 // kernel bodies (ops/fused_step.py _BODY_CODE)
@@ -514,7 +531,7 @@ __device__ __forceinline__ void pass12_node(
         const Consts& c, const float* __restrict__ cin,
         float* __restrict__ cout, const float* __restrict__ scr,
         const int8_t* __restrict__ idn, const int32_t* __restrict__ ctxw,
-        float dt, float beta_scen, int i, int j, float* acc) {
+        float dt, float beta_scen, int i, int j, bool own, float* acc) {
     const size_t P = static_cast<size_t>(c.X) * c.Y;
     uint32_t w[CTX_N_WORDS];
     load_ctx<SPEC>(w, ctxw, P, static_cast<size_t>(i) * c.Y + j);
@@ -572,7 +589,7 @@ __device__ __forceinline__ void pass12_node(
         const bool gate = ddmask && S_eff != 0.f;
         cout[(CARRY_S + e) * P + n] = next;
         cout[(CARRY_BETA + e) * P + n] = gate ? nb : beta;
-        if (gate) {
+        if (gate && own) {
             acc[e] = c.alt_rms ? (c.serial_rms ? abs_dd : abs_dd * abs_dd)
                                : dd * dd;
             acc[9 + e] = c.alt_rms ? S_eff * S_eff : 1.f;
@@ -688,8 +705,10 @@ gfc_kernel(const Consts c, const float* __restrict__ cin,
             gfc_node<false>(c, cin, cout, scr, idn, mf, ctxw, chemf, chemi,
                             *dtp, aux[1], aux[2] > F(0.5), i, j, uns, ovr);
     }
-    const int n_uns = __syncthreads_count(uns);
-    const int n_ovr = __syncthreads_count(ovr);
+    // the node is computed at every row; only the window's rows count
+    const bool own = i >= c.x0 && i < c.x1;
+    const int n_uns = __syncthreads_count(uns && own);
+    const int n_ovr = __syncthreads_count(ovr && own);
     if (threadIdx.x == 0 && threadIdx.y == 0) {
         part_i[2 * tile] = n_uns;
         part_i[2 * tile + 1] = n_ovr;
@@ -714,12 +733,13 @@ pass12_kernel(const Consts c, const float* __restrict__ cin,
 #pragma unroll
     for (int q = 0; q < NQ; ++q) acc[q] = 0.f;
     if (i < c.X && j < c.Y) {
+        const bool own = i >= c.x0 && i < c.x1;
         if (spec_tile<BODY>(flags, tile))
             pass12_node<true>(c, cin, cout, scr, idn, ctxw, *dtp, aux[0], i,
-                              j, acc);
+                              j, own, acc);
         else
             pass12_node<false>(c, cin, cout, scr, idn, ctxw, *dtp, aux[0], i,
-                               j, acc);
+                               j, own, acc);
     }
     // tile partials in a fixed order: lanes of a warp (one row of the
     // tile), then the TILE_X warps in row order

@@ -25,11 +25,12 @@ Two dispatch forms issue gfc and pass12 (``dispatch``):
 
 Each tile runs the same body in both forms, so they give the same bits.
 
-Nothing in the loop synchronizes with the host: dt and the per-iteration
-scalars stay on the device, in the working dtype, and the kernels read them
-through pointers.  They pass through float32 even in a float64 run, as
-the TPU kernel's float32 scalar vector did (pallas_step.py:946-958), so the
-two packages agree in float64 too.
+The loop reads nothing back to the host: dt and the per-iteration scalars
+stay on the device, in the working dtype, and the kernels read them through
+pointers (``local_dt`` still copies the CFL constant to the device, which
+waits for the stream; PERF.md, Open questions).  They pass through float32
+even in a float64 run, as the TPU kernel's float32 scalar vector did
+(pallas_step.py:946-958), so the two packages agree in float64 too.
 
 ``FusedStep`` holds the kernels' wrappers and their plain torch versions
 (``gfc_plain``/``heat_plain``/``pass12_plain``: core/step.gfc without its
@@ -37,6 +38,12 @@ heat stage, core/physics.calc_heat_on_wall_sources and core/step.pass12
 over the whole grid, returning the same planes and per-tile partials).  A wrapper runs the plain
 version for CPU tensors and launches its kernel for CUDA tensors; there is
 no other fallback.
+
+A tile plan carries a window of rows ``(x0, x1)``: every node is computed,
+but only the nodes with ``x0 <= i < x1`` count in the per-tile partials.
+The single-domain path's window is the whole grid; an X strip of the
+multi-device path (parallel/shard_step) is its own rows between two halos
+(the counterpart of ``interior_x``, pallas_step.py:594-598).
 """
 
 from __future__ import annotations
@@ -78,6 +85,16 @@ DISPATCH_FORMS = ("lists", "dual")
 # slower (PERF.md, Findings)
 DEFAULT_DISPATCH = "lists"
 _BODY_CODE = {"general": 0, "spec": 1, "dual": 2}   # fused_step.cu BODY_*
+# tile subsets of a strip plan (make_tile_plan's ``halo``): "edge" holds
+# every tile with a row in the two halos or in the H own rows next to them,
+# "inner" the rest
+PARTS = ("edge", "inner")
+
+
+def halo_depth(params) -> int:
+    """Stencil dependency depth of one iteration: 2, or 3 with d2*-NULL
+    soft BCs (pallas_step.py:79-99, without its HF2D_HALO override)."""
+    return 3 if (params.has_d2x or params.has_d2y) else 2
 
 
 def carry_views(carry: torch.Tensor, dt) -> SlimState:
@@ -106,7 +123,9 @@ class TilePlan:
     complete and every node in it is generic interior (its nodes then decode
     to the constants of specialized_interior_ctx).  A heat tile holds a
     node of the conjugate-heat stage (a solid node next to a wall gas node,
-    or that gas node)."""
+    or that gas node).  ``window``: the rows (x0, x1) whose nodes count in
+    the partials.  ``parts``: a strip plan's tile lists by (body, part),
+    part one of PARTS."""
 
     X: int
     Y: int
@@ -117,22 +136,36 @@ class TilePlan:
     general_tiles: torch.Tensor
     heat_tiles: torch.Tensor
     flags: torch.Tensor           # int32 per tile id: 1 = spec (row-major)
+    window: tuple
+    parts: dict
 
     @property
     def n_tiles(self) -> int:
         return self.nbx * self.nby
 
-    def tiles(self, body: str) -> torch.Tensor:
-        """The tile list of the "spec" or the "general" body."""
+    def tiles(self, body: str, part: str = None) -> torch.Tensor:
+        """The tile list of the "spec" or the "general" body, or of its
+        ``part`` on a strip plan."""
+        if part is not None:
+            return self.parts[body, part]
         return {"spec": self.spec_tiles, "general": self.general_tiles}[body]
 
-    def launch_grid(self, body: str):
+    def launch_grid(self, body: str, part: str = None):
         """(tile list pointer or None, CTAs) of one launch of ``body``; the
         dual form runs every tile, CTA b on tile b, and reads no list."""
         if body == "dual":
             return None, self.n_tiles
-        t = self.tiles(body)
+        t = self.tiles(body, part)
         return t.data_ptr(), t.numel()
+
+    def node_mask(self, tiles: torch.Tensor) -> torch.Tensor:
+        """(X, Y) bool mask of the nodes of a tile list."""
+        TX, TY = TILE
+        m = torch.zeros(self.n_tiles, dtype=torch.bool, device=tiles.device)
+        m[tiles.long()] = True
+        m = m.reshape(self.nbx, 1, self.nby, 1).expand(
+            self.nbx, TX, self.nby, TY)
+        return m.reshape(self.nbx * TX, self.nby * TY)[:self.X, :self.Y]
 
 
 def _tile_any(node_map, nbx: int, nby: int) -> np.ndarray:
@@ -145,10 +178,14 @@ def _tile_any(node_map, nbx: int, nby: int) -> np.ndarray:
     return m.reshape(nbx, TX, nby, TY).any(axis=(1, 3))
 
 
-def make_tile_plan(X: int, Y: int, spec_map, device,
-                   heat_map=None) -> TilePlan:
+def make_tile_plan(X: int, Y: int, spec_map, device, heat_map=None,
+                   halo: int = 0) -> TilePlan:
     """``spec_map``: the host generic-interior map (None: no spec tiles);
-    ``heat_map``: the host map of heat-stage nodes (None: no heat tiles)."""
+    ``heat_map``: the host map of heat-stage nodes (None: no heat tiles).
+    ``halo`` > 0 makes the plan of an X strip whose first and last ``halo``
+    rows are halos: its window is the rows between them, and its parts
+    split each body's list into the tiles with a row in [0, 2 halo) or
+    [X - 2 halo, X) ("edge") and the rest ("inner")."""
     TX, TY = TILE
     nbx, nby = -(-X // TX), -(-Y // TY)
     spec = np.zeros((nbx, nby), bool)
@@ -163,8 +200,17 @@ def make_tile_plan(X: int, Y: int, spec_map, device,
     def dev(a):
         return torch.as_tensor(a, dtype=torch.int32, device=device)
 
+    parts = {}
+    if halo:
+        rows = np.arange(nbx)[:, None] * TX
+        edge = np.broadcast_to((rows < 2 * halo) | (rows + TX > X - 2 * halo),
+                               (nbx, nby))
+        for body, m in (("spec", spec), ("general", ~spec)):
+            parts[body, "edge"] = dev(ids[m & edge])
+            parts[body, "inner"] = dev(ids[m & ~edge])
     return TilePlan(X, Y, nbx, nby, spec, dev(ids[spec]),
-                    dev(ids[~spec]), dev(ids[heat]), dev(spec.reshape(-1)))
+                    dev(ids[~spec]), dev(ids[heat]), dev(spec.reshape(-1)),
+                    (halo, X - halo), parts)
 
 
 def heat_node_map(ctx) -> np.ndarray:
@@ -195,7 +241,7 @@ class KernelConsts(ctypes.Structure):
         "sig_f", "k0", "k0_div", "tf", "c_mu075")] + [
         ("hu", ctypes.c_float * 4)] + [(f, ctypes.c_int) for f in (
             "X", "Y", "nby", "has_walls", "fast_math", "bff", "alt_rms",
-            "serial_rms", "zeldovich", "heat")]
+            "serial_rms", "zeldovich", "heat", "x0", "x1")]
 
 
 def kernel_consts(p: SolverParams, plan: TilePlan,
@@ -209,7 +255,8 @@ def kernel_consts(p: SolverParams, plan: TilePlan,
         X=p.MaxX, Y=p.MaxY, nby=plan.nby, has_walls=int(p.has_walls),
         fast_math=int(p.fast_math), bff=p.bff,
         alt_rms=int(p.isAlternateRMS), serial_rms=int(p.serial_rms_mode),
-        zeldovich=int(p.chemistry == fl.CRM_ZELDOVICH), heat=int(heat))
+        zeldovich=int(p.chemistry == fl.CRM_ZELDOVICH), heat=int(heat),
+        x0=plan.window[0], x1=plan.window[1])
 
 
 def pack_chem(chem: ChemTables, p: SolverParams):
@@ -260,6 +307,9 @@ class FusedStep:
         self.zero_src = torch.zeros((fl.NUM_EQ, p.MaxX, p.MaxY),
                                     dtype=p.torch_dtype, device=meta.CT.device)
         self.consts = kernel_consts(p, plan, self.has_heat)
+        # (X, 1) rows of the window, for the plain versions' partials
+        rows = torch.arange(p.MaxX, device=meta.CT.device)[:, None]
+        self.own = (rows >= plan.window[0]) & (rows < plan.window[1])
         self.launches = dict.fromkeys(KERNEL_NAMES, 0)
 
     def reset_launches(self) -> None:
@@ -293,12 +343,17 @@ class FusedStep:
         lib.check(code, name)
         self.launches[name] += 1
 
-    def _bodies(self):
-        """The gfc/pass12 launches of one iteration: the dual form's one,
-        or each list with tiles (spec first)."""
+    def _bodies(self, part=None):
+        """The gfc/pass12 launches of one iteration (or of one part of a
+        strip plan's tiles): the dual form's one, or each list with tiles
+        (spec first)."""
         if self.dispatch == "dual":
+            if part is not None:
+                raise ValueError("the dual form runs every tile in one "
+                                 "launch; a part needs dispatch=\"lists\"")
             return ["dual"]
-        return [b for b in ("spec", "general") if self.plan.tiles(b).numel()]
+        return [b for b in ("spec", "general")
+                if self.plan.tiles(b, part).numel()]
 
     def launch_gfc(self, body, cin, cout, scr, dt, aux, part_i):
         """One gfc_kernel instantiation over its tiles (CUDA tensors);
@@ -311,10 +366,12 @@ class FusedStep:
             _ptr(self.ctxw), _ptr(self.chemf), _ptr(self.chemi), _ptr(dt),
             _ptr(aux), tiles, n_tiles, _ptr(self.plan.flags), _ptr(part_i)))
 
-    def launch_pass12(self, body, cin, cout, scr, dt, aux, part_f):
-        """One pass12_kernel instantiation over its tiles (CUDA tensors)."""
+    def launch_pass12(self, body, cin, cout, scr, dt, aux, part_f,
+                      part=None):
+        """One pass12_kernel instantiation over its tiles, or over its
+        tiles of ``part`` (CUDA tensors)."""
         self._check_cuda(cin, cout, scr, dt, aux, part_f)
-        tiles, n_tiles = self.plan.launch_grid(body)
+        tiles, n_tiles = self.plan.launch_grid(body, part)
         self._launch("hf2d_pass12", f"pass12_kernel<{body}>", (
             _BODY_CODE[body], ctypes.addressof(self.consts), _ptr(cin),
             _ptr(cout), _ptr(scr), _ptr(self.idn), _ptr(self.ctxw), _ptr(dt),
@@ -347,15 +404,16 @@ class FusedStep:
             return self.heat_plain(cout, scr, dt)
         self.launch_heat(cout, scr, dt)
 
-    def pass12(self, cin, cout, scr, dt, aux, part_f):
+    def pass12(self, cin, cout, scr, dt, aux, part_f, part=None):
         """pass12_kernel: pass 1 + pass 2 from the scratch at +-1 and the
         blending factors of ``cin``; writes S and beta of ``cout`` and
         per-tile (RMS numerator, denominator, DD max) x 9 into ``part_f``.
-        ``aux`` is the row of iteration k+1."""
+        ``aux`` is the row of iteration k+1.  ``part`` (one of PARTS)
+        restricts the launches to that part of a strip plan's tiles."""
         if cin.device.type == "cpu":
-            return self.pass12_plain(cin, cout, scr, dt, aux, part_f)
-        for body in self._bodies():
-            self.launch_pass12(body, cin, cout, scr, dt, aux, part_f)
+            return self.pass12_plain(cin, cout, scr, dt, aux, part_f, part)
+        for body in self._bodies(part):
+            self.launch_pass12(body, cin, cout, scr, dt, aux, part_f, part)
 
     # ------------------------------------------------------------------
     # plain versions
@@ -381,10 +439,10 @@ class FusedStep:
             # before it
             scr[SCR_LAM_EFF] = out.lam + out.lam_t
         cout[_PRIMS:] = pack_carry(shrink(out))[_PRIMS:]
-        part_i[:, 0] = _tile_reduce(unstable.to(torch.int32), self.plan,
-                                    "sum")
-        part_i[:, 1] = _tile_reduce((dt > dt_field).to(torch.int32),
+        part_i[:, 0] = _tile_reduce((unstable & self.own).to(torch.int32),
                                     self.plan, "sum")
+        part_i[:, 1] = _tile_reduce(((dt > dt_field) & self.own).to(
+            torch.int32), self.plan, "sum")
 
     def heat_plain(self, cout, scr, dt):
         """calc_heat_on_wall_sources on gfc's outputs: Tg of ``cout`` and
@@ -396,7 +454,9 @@ class FusedStep:
         out = calc_heat_on_wall_sources(state, self.meta, p, ctx=self.ctx)
         scr[SCR_SRCADD_E] = out.SrcAdd[fl.i2d_RhoE]
 
-    def pass12_plain(self, cin, cout, scr, dt, aux, part_f):
+    def pass12_plain(self, cin, cout, scr, dt, aux, part_f, part=None):
+        """``part``: compute the whole grid, write the nodes and partials
+        of that part's tiles only (what its launches write)."""
         p = self.params
         src = torch.cat([self.zero_src[:fl.i2d_k], scr[27:29]])
         state = expand(carry_views(cin, dt), p, src).replace(
@@ -407,9 +467,7 @@ class FusedStep:
                 self.zero_src[fl.i2d_RhoE + 1:]]))
         S_c, beta_c, _, _, f = pass12(state, self.meta, p, self._aux(aux),
                                       return_fields=True, ctx=self.ctx)
-        cout[0:9] = S_c
-        cout[9:18] = beta_c
-        gate = f["gate"]
+        gate = f["gate"] & self.own
         if p.isAlternateRMS:
             acc = (f["abs_dd"] if p.serial_rms_mode
                    else f["abs_dd"] * f["abs_dd"])
@@ -419,29 +477,50 @@ class FusedStep:
             num = torch.where(gate, f["dd_local"] * f["dd_local"], 0.0)
             den = gate.to(num.dtype)
         ddm = torch.where(gate, f["dd_local"], 0.0)
-        part_f[:, 0:9] = _tile_reduce(num, self.plan, "sum")
-        part_f[:, 9:18] = _tile_reduce(den, self.plan, "sum")
-        part_f[:, 18:27] = _tile_reduce(ddm, self.plan, "max")
+        new_f = torch.cat([_tile_reduce(num, self.plan, "sum"),
+                           _tile_reduce(den, self.plan, "sum"),
+                           _tile_reduce(ddm, self.plan, "max")], 1)
+        if part is None:
+            cout[0:9] = S_c
+            cout[9:18] = beta_c
+            part_f[:] = new_f
+            return
+        tiles = torch.cat([self.plan.tiles(b, part)
+                           for b in self._bodies(part)] or
+                          [torch.zeros(0, dtype=torch.int32)]).long()
+        m = self.plan.node_mask(tiles)
+        cout[0:18] = torch.where(m, torch.cat([S_c, beta_c]), cout[0:18])
+        part_f[tiles] = new_f[tiles]
+
+
+def tile_totals(part_f: torch.Tensor, part_i: torch.Tensor):
+    """Per-tile partials summed over the tiles: (RMS numerator (9,),
+    denominator (9,), DD max (9,), (Tg<0, dt overrun) counts (2,))."""
+    return (part_f[:, 0:9].sum(0), part_f[:, 9:18].sum(0),
+            part_f[:, 18:27].amax(0), part_i.sum(0))
+
+
+def rms_of(nsum, dsum, p: SolverParams):
+    """The RMS of each equation from its summed numerator and
+    denominator."""
+    if p.isAlternateRMS:
+        fb = torch.zeros_like(nsum) if p.serial_rms_mode else nsum
+        return torch.where((nsum > 0) & (dsum > 0),
+                           torch.sqrt(_safe_div(nsum, dsum)), fb)
+    return torch.where(dsum > 0, torch.sqrt(_safe_div(nsum, dsum)), nsum)
 
 
 def combine(part_f: torch.Tensor, part_i: torch.Tensor, p: SolverParams):
     """Per-tile partials -> (RMS (9,), DD_max (9,), unstable, dt_overrun)
     of one iteration (pallas_step.py:1014-1028)."""
-    nsum = part_f[:, 0:9].sum(0)
-    dsum = part_f[:, 9:18].sum(0)
-    if p.isAlternateRMS:
-        fb = torch.zeros_like(nsum) if p.serial_rms_mode else nsum
-        rms = torch.where((nsum > 0) & (dsum > 0),
-                          torch.sqrt(_safe_div(nsum, dsum)), fb)
-    else:
-        rms = torch.where(dsum > 0, torch.sqrt(_safe_div(nsum, dsum)), nsum)
-    counts = part_i.sum(0)
-    return rms, part_f[:, 18:27].amax(0), counts[0] > 0, counts[1] > 0
+    nsum, dsum, ddm, counts = tile_totals(part_f, part_i)
+    return rms_of(nsum, dsum, p), ddm, counts[0] > 0, counts[1] > 0
 
 
-def scan_dt(slim: SlimState, active, p: SolverParams, cfl_scen):
-    """Global dt from the carried primitives (deeps2d_core.cpp:1317-1327
-    with the kernel path's one-iteration primitive lag)."""
+def local_dt(slim: SlimState, active, p: SolverParams, cfl_scen):
+    """min(1, the least CFL dt over the active nodes) of the carried
+    primitives: the part of ``scan_dt`` before a reduction across
+    shards."""
     dtype = slim.U.dtype
     cfl_min = torch.minimum(torch.tensor(p.CFL, dtype=dtype,
                                          device=slim.U.device), cfl_scen)
@@ -449,10 +528,21 @@ def scan_dt(slim: SlimState, active, p: SolverParams, cfl_scen):
     aaa = torch.sqrt(torch.clamp_min(k_new * slim.R * slim.Tg, 0.0))
     dtn = cfl_min * torch.minimum(p.dx / (aaa + torch.abs(slim.U)),
                                   p.dy / (aaa + torch.abs(slim.V)))
-    dt_new = torch.clamp_max(torch.where(active, dtn, 1.0).amin(), 1.0)
+    return torch.clamp_max(torch.where(active, dtn, 1.0).amin(), 1.0)
+
+
+def serial_dt(dt_new, dt_prev, p: SolverParams):
+    """The serial build's monotone dt (deeps2d_core.cpp:846-852), in the
+    working dtype."""
     if p.serial_dt_mode:
-        dt_new = torch.minimum(dt_new, slim.dt)
-    return dt_new.to(dtype)
+        dt_new = torch.minimum(dt_new, dt_prev)
+    return dt_new.to(dt_prev.dtype)
+
+
+def scan_dt(slim: SlimState, active, p: SolverParams, cfl_scen):
+    """Global dt from the carried primitives (deeps2d_core.cpp:1317-1327
+    with the kernel path's one-iteration primitive lag)."""
+    return serial_dt(local_dt(slim, active, p, cfl_scen), slim.dt, p)
 
 
 class KernelChunk:

@@ -2,9 +2,11 @@
 
 Counterpart of ``openhyperflow2d_tpu.solver.runner``: an outer cycle of
 ``Nstep`` inner iterations; the inner iterations run as one chunk (the
-eager ``make_fast_chunk`` or the kernel path's ``make_kernel_chunk``), and
-the outer cycle returns to Python for the host-side bookkeeping, exactly
-where the reference does its rank-0 work (deeps2d_core.cpp:512-2023).
+eager ``make_fast_chunk`` or the kernel path's ``make_kernel_chunk``; with
+a communicator, their X-strip forms ``make_shard_chunk`` and
+``make_kernel_shard_chunk`` of parallel/shard_step), and the outer cycle
+returns to Python for the host-side bookkeeping, exactly where the
+reference does its rank-0 work (deeps2d_core.cpp:512-2023).
 """
 
 from __future__ import annotations
@@ -21,15 +23,22 @@ from ..core.state import meta_from_grid, state_from_grid
 from ..core.static_ctx import generic_interior_map, iscond
 from ..core.step import make_fast_chunk
 from ..ops.fused_step import DEFAULT_DISPATCH, make_kernel_chunk
+from ..parallel.multihost import gather_to_host
+from ..parallel.shard_step import make_kernel_shard_chunk, make_shard_chunk
 from .init import Case, chem_tables_device
 
 
-def choose_step_path(device_type: str, dtype: str, uniform_mesh: bool,
-                     n_devices: int = 1):
+def choose_step_path(device_type: str, dtype: str, uniform_mesh: bool):
     """Step-path selection: the hand-written CUDA kernels run on a CUDA
-    device in float32 on a uniform mesh and one GPU; everything else runs
-    the eager, reference-exact path.  Decided from the configuration alone.
-    Returns ``(use_kernels, reason)``."""
+    device in float32 on a uniform mesh; everything else runs the eager,
+    reference-exact path.  Decided from the configuration alone.  Returns
+    ``(use_kernels, reason)``.
+
+    This departs from JAX's choose_step_path (solver/runner.py:48-50) on
+    purpose: JAX sends multi-device runs to its XLA path, which GSPMD
+    shards by itself.  PyTorch has no GSPMD, so the port runs several
+    devices (or several strips on one device) as X strips on the kernel
+    path (parallel/shard_step), and the device count does not enter."""
     if device_type != "cuda":
         return False, (f"device is {device_type!r}; the kernels are CUDA "
                        f"kernels")
@@ -38,12 +47,10 @@ def choose_step_path(device_type: str, dtype: str, uniform_mesh: bool,
                        f"runs take the eager path")
     if not uniform_mesh:
         return False, "non-uniform mesh runs on the eager path only"
-    if n_devices > 1:
-        return False, "multi-GPU runs are not ported"
-    return True, "CUDA, float32, uniform mesh, one GPU"
+    return True, "CUDA, float32, uniform mesh"
 
 
-def check_supported(params, n_devices: int = 1) -> None:
+def check_supported(params) -> None:
     """Raise NotImplementedError naming everything this case needs that the
     port does not do yet (nothing computes a partial result)."""
     p = params
@@ -69,10 +76,33 @@ def check_supported(params, n_devices: int = 1) -> None:
         missing.append("moving-wall sources")
     if p.chemistry not in (fl.CRM_ZELDOVICH, fl.CRM_NO_REACTIONS):
         missing.append(f"chemistry model {p.chemistry}")
-    if n_devices > 1:
-        missing.append("more than one GPU")
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
+
+
+def _wall_friction(st, m):
+    """Friction velocity at the wall gas nodes, 0 elsewhere."""
+    S0 = st.S[fl.i2d_Rho]
+    ct = m.CT
+    wall = iscond(ct, fl.CT_WALL_NO_SLIP_2D) | iscond(ct, fl.CT_WALL_LAW_2D)
+    solid = iscond(ct, fl.CT_SOLID_2D)
+    tau_w = (torch.abs(st.dUdy) + torch.abs(st.dVdx)) * st.mu
+    rho_s = torch.where(S0 != 0, S0, 1)
+    u_w = torch.sqrt(torch.where(S0 != 0, tau_w / rho_s, 0.0) + 1e-30)
+    return torch.where(wall & ~solid, u_w, 0.0)
+
+
+def _y_plus(st, m, u_map, Y: int):
+    """``st`` with y+ of its active nodes from the friction velocity of
+    the whole grid ``u_map`` (rows of Y nodes) at their nearest wall."""
+    S0 = st.S[fl.i2d_Rho]
+    active = (iscond(m.CT, fl.CT_NODE_IS_SET_2D)
+              & ~iscond(m.CT, fl.CT_SOLID_2D))
+    idx = (m.i_wall.long() * Y + m.j_wall.long()).reshape(-1)
+    u_at = u_map.reshape(-1)[idx].reshape(S0.shape)
+    mu_s = torch.where(st.mu != 0, st.mu, 1)
+    yp = torch.abs(u_at * m.l_min * S0 / mu_s)
+    return st.replace(y_plus=torch.where(active, yp, st.y_plus))
 
 
 @dataclass
@@ -89,7 +119,7 @@ class RunStats:
 
 
 class Solver:
-    """Single-device solver.
+    """The solver on one device, or over the X strips of a communicator.
 
     ``device``: torch device; None means the GPU (``"cuda"``), and raises
     when CUDA is absent.  The CPU runs only when the caller asks for it
@@ -100,34 +130,44 @@ class Solver:
     ``dispatch``: how the kernel path issues its kernels,
     ``"lists"`` or ``"dual"`` (ops/fused_step.DISPATCH_FORMS); None picks
     ``DEFAULT_DISPATCH``.
+    ``comm``: a communicator of parallel/comm (``LocalComm(n, device)``:
+    n strips in this process; ``DistComm()``: one strip per
+    torch.distributed rank).  The solver then runs the strip path of
+    parallel/shard_step on ``comm.device``; ``state`` is a StripState and
+    ``host_state()`` gathers it on the primary process.  ``overlap``: the
+    kernel strip path's Isend/Irecv -> work -> Wait form.
     """
 
     def __init__(self, case: Case, device=None, use_kernels: bool = None,
-                 n_devices: int = 1, dispatch: str = None):
+                 dispatch: str = None, comm=None, overlap: bool = False):
         p = case.params
-        check_supported(p, n_devices)
+        check_supported(p)
+        if comm is not None:
+            if device is not None and \
+                    torch.device(device).type != comm.device.type:
+                raise ValueError(f"device {device} is not the "
+                                 f"communicator's {comm.device}")
+            device = comm.device
         if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "Solver(device=None) runs on the GPU, and CUDA is not "
-                    "available; pass device=\"cpu\" to run on the CPU")
             device = "cuda"
+        if torch.device(device).type == "cuda" and \
+                not torch.cuda.is_available():
+            raise RuntimeError(
+                "Solver(device=None) runs on the GPU, and CUDA is not "
+                "available; pass device=\"cpu\" to run on the CPU")
         self.device = torch.device(device)
         if use_kernels is None:
             use_kernels, self.path_reason = choose_step_path(
-                self.device.type, p.dtype, p.uniform_mesh, n_devices)
+                self.device.type, p.dtype, p.uniform_mesh)
         else:
             self.path_reason = "chosen by the caller"
         self.use_kernels = use_kernels
+        self.comm = comm
         self.case = case
         self.params = p
         dtype = p.torch_dtype
         dev = self.device
-        self.meta = meta_from_grid(case.grid, dtype=dtype, device=dev)
         self.chem = chem_tables_device(case.chem, dtype, dev)
-        self.state = state_from_grid(case.grid, p, case.dt0, device=dev)
-        self._src_ext = torch.as_tensor(case.grid.Src, dtype=dtype,
-                                        device=dev)
 
         def tab(t):
             return (torch.as_tensor(np.asarray(t.x), dtype=dtype, device=dev),
@@ -140,6 +180,14 @@ class Solver:
                                                      required=False))
         self.current_time_part = 0.0
         self.stats = RunStats()
+        if comm is not None:
+            self._init_strips(case, use_kernels, dispatch, overlap)
+            return
+
+        self.meta = meta_from_grid(case.grid, dtype=dtype, device=dev)
+        self.state = state_from_grid(case.grid, p, case.dt0, device=dev)
+        self._src_ext = torch.as_tensor(case.grid.Src, dtype=dtype,
+                                        device=dev)
 
         # initial FillNode2D(0,1): fluxes + turbulence init, once
         # (deeps2d_core.cpp:4565)
@@ -164,6 +212,25 @@ class Solver:
                 self.meta, p, self.chem, self.beta_tab, self.cfl_tab,
                 p.TurbStartIter, probe_idx=probe_idx)
             self.fused = None
+
+    def _init_strips(self, case, use_kernels, dispatch, overlap):
+        """The strip path: the whole grid's meta and initial state stay on
+        the host; each strip goes to the communicator's device, where its
+        initial FillNode2D runs."""
+        p, comm = self.params, self.comm
+        self.path_reason += f"; {comm.n} X strips"
+        meta = meta_from_grid(case.grid, dtype=p.torch_dtype, device="cpu")
+        args = (meta, p, self.chem, self.beta_tab, self.cfl_tab,
+                p.TurbStartIter, comm)
+        if use_kernels:
+            self._chunk_fn = make_kernel_shard_chunk(
+                *args, dispatch=dispatch or DEFAULT_DISPATCH,
+                overlap=overlap)
+        else:
+            self._chunk_fn = make_shard_chunk(*args)
+        self.meta = self.fused = self._src_ext = None
+        host = state_from_grid(case.grid, p, case.dt0, device="cpu")
+        self.state = self._chunk_fn.fill_init(self._chunk_fn.scatter(host))
 
     def run_iters(self, n_iters: int):
         """Run ``n_iters`` inner iterations; returns the stacked diagnostics
@@ -197,24 +264,20 @@ class Solver:
         """Per-cycle y+ update on the device (ParallelRecalc_y_plus,
         deeps2d_core.cpp:1649-1677 + 2260-2322): friction velocity on every
         wall node, broadcast to every node by its nearest-wall index with
-        one flat gather."""
-        p = self.params
-        st, m = self.state, self.meta
-        S0 = st.S[fl.i2d_Rho]
-        ct = m.CT
-        wall = (iscond(ct, fl.CT_WALL_NO_SLIP_2D)
-                | iscond(ct, fl.CT_WALL_LAW_2D))
-        solid = iscond(ct, fl.CT_SOLID_2D)
-        active = iscond(ct, fl.CT_NODE_IS_SET_2D) & ~solid
-        tau_w = (torch.abs(st.dUdy) + torch.abs(st.dVdx)) * st.mu
-        rho_s = torch.where(S0 != 0, S0, 1)
-        u_w = torch.sqrt(torch.where(S0 != 0, tau_w / rho_s, 0.0) + 1e-30)
-        u_map = torch.where(wall & ~solid, u_w, 0.0)
-        idx = (m.i_wall.long() * p.MaxY + m.j_wall.long()).reshape(-1)
-        u_at = u_map.reshape(-1)[idx].reshape(S0.shape)
-        mu_s = torch.where(st.mu != 0, st.mu, 1)
-        yp = torch.abs(u_at * m.l_min * S0 / mu_s)
-        self.state = st.replace(y_plus=torch.where(active, yp, st.y_plus))
+        one flat gather (on the strip path, from the friction velocity of
+        every strip, gathered along X)."""
+        if self.comm is None:
+            st, m = self.state, self.meta
+            self.state = _y_plus(st, m, _wall_friction(st, m),
+                                 self.params.MaxY)
+            return
+        metas = self._chunk_fn.own_meta
+        strips = self.state.strips
+        full = self.comm.all_gather([_wall_friction(st, m)
+                                     for st, m in zip(strips, metas)])
+        self.state = type(self.state)([
+            _y_plus(st, m, u, self.params.MaxY)
+            for st, m, u in zip(strips, metas, full)])
 
     # ------------------------------------------------------------------
     def monitor_condition(self, diags) -> bool:
@@ -236,7 +299,11 @@ class Solver:
         return float(rms[mi - 1]), mi - 1
 
     def host_state(self) -> dict:
-        """The dynamic state as numpy arrays, {field: array}."""
+        """The dynamic state as numpy arrays, {field: array}; on the strip
+        path the strips gathered on the primary process (None on the other
+        ranks)."""
+        if self.comm is not None:
+            return gather_to_host(self.state, self.comm, self.params.MaxX)
         return {k: v.detach().cpu().contiguous().numpy()
                 for k, v in self.state.__dict__.items()}
 

@@ -1,8 +1,8 @@
 """The port's Solver refuses what it cannot do, picks its step path from the
 configuration alone, and its kernel wrappers never fall back.
 
-* ``choose_step_path``: only CUDA, float32, a uniform mesh and one GPU take
-  the kernel path.
+* ``choose_step_path``: only CUDA, float32 and a uniform mesh take the
+  kernel path (several devices run it as X strips).
 * ``check_supported``: every physics option the port lacks raises
   NotImplementedError naming it, before anything runs.
 * The kernel wrappers run the plain version only for CPU tensors; a tensor on
@@ -29,17 +29,18 @@ from openhyperflow2d_torch.core import physics as tphys
 from openhyperflow2d_torch.core import state as tstate
 from openhyperflow2d_torch.core import step as tstep
 from openhyperflow2d_torch.ops.fused_step import N_SCRATCH
+from openhyperflow2d_torch.parallel.comm import LocalComm
 from openhyperflow2d_torch.solver.init import build_case
 from openhyperflow2d_torch.solver.runner import (Solver, check_supported,
                                                  choose_step_path)
 
 
 @pytest.mark.parametrize("args, use", [
-    (("cuda", "float32", True, 1), True),
-    (("cpu", "float32", True, 1), False),
-    (("cuda", "float64", True, 1), False),
-    (("cuda", "float32", False, 1), False),
-    (("cuda", "float32", True, 2), False),
+    (("cuda", "float32", True), True),
+    (("cpu", "float32", True), False),
+    (("cuda", "float64", True), False),
+    (("cuda", "float32", False), False),
+    (("meta", "float32", True), False),
 ])
 def test_choose_step_path(args, use):
     got, reason = choose_step_path(*args)
@@ -53,23 +54,23 @@ SUPPORTED = tstate.SolverParams(MaxX=8, MaxY=8, dx=1e-3, dy=1e-3,
                                 has_ext_src=False)
 
 
-@pytest.mark.parametrize("change, n_devices, words", [
-    ({"sm": fl.SM_EULER}, 1, "Euler"),
-    ({"models": ("keps", "sa")}, 1, "turbulence closures ['sa']"),
-    ({"tem": fl.TEM_k_eps_Chien}, 1, "k-eps variant"),
-    ({"ft": fl.FT_AXISYMMETRIC}, 1, "axisymmetric"),
-    ({"uniform_mesh": False}, 1, "non-uniform meshes"),
-    ({"has_d2y": True}, 1, "soft boundary conditions"),
-    ({"has_nrbc": True}, 1, "non-reflected"),
-    ({"has_ext_src": True}, 1, "external sources"),
-    ({"isSrcAdd": True}, 1, "moving-wall sources"),
-    ({}, 2, "more than one GPU"),
+@pytest.mark.parametrize("change, words", [
+    ({"sm": fl.SM_EULER}, "Euler"),
+    ({"models": ("keps", "sa")}, "turbulence closures ['sa']"),
+    ({"tem": fl.TEM_k_eps_Chien}, "k-eps variant"),
+    ({"ft": fl.FT_AXISYMMETRIC}, "axisymmetric"),
+    ({"uniform_mesh": False}, "non-uniform meshes"),
+    ({"has_d2y": True}, "soft boundary conditions"),
+    ({"has_nrbc": True}, "non-reflected"),
+    ({"has_ext_src": True}, "external sources"),
+    ({"isSrcAdd": True}, "moving-wall sources"),
+    ({"chemistry": 2}, "chemistry model 2"),
 ])
-def test_check_supported_names_what_is_missing(change, n_devices, words):
+def test_check_supported_names_what_is_missing(change, words):
     check_supported(SUPPORTED)
     with pytest.raises(NotImplementedError, match=words.replace(
             "[", r"\[").replace("]", r"\]")):
-        check_supported(dataclasses.replace(SUPPORTED, **change), n_devices)
+        check_supported(dataclasses.replace(SUPPORTED, **change))
 
 
 @pytest.fixture(scope="module")
@@ -108,6 +109,9 @@ def test_solver_runs_on_the_gpu_unless_asked(small_case, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Solver(small_case)
+    # the strip path's communicator holds its strips on the GPU by default
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Solver(small_case, comm=LocalComm(2))
     assert Solver(small_case, device="cpu").device.type == "cpu"
 
 
