@@ -39,6 +39,8 @@ _SIGNATURES = {
     "hf2d_pass12": [_I] + [_P] * 9 + [_I, _P, _P, _P],
     # consts, cout, scr, ctx, dt, tiles, n_tiles, stream
     "hf2d_heat": [_P] * 6 + [_I, _P],
+    # kernel (8 * stage + body), out (int32 x 6)
+    "hf2d_kernel_info": [_I, _P],
     # axis, wrap, x, out, X, Y, stream
     "hf2d_shift_chain": [_I, _I, _P, _P, _I, _I, _P],
     # op, x, out, n, stream

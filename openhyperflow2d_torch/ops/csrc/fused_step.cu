@@ -7,6 +7,10 @@
 //                        heat tiles
 //   pass12_kernel<BODY>  pass 1 (blending update) + pass 2 (residual,
 //                        blending factor, commit), one thread per node
+//   gfc_window_kernel,   the general body of both stages in a second form
+//   pass12_window_kernel (BODY_STAGED): persistent CTAs, each tile's
+//                        operands staged in shared memory (below); no
+//                        solver path launches it
 //
 // Replaces the TPU kernel openhyperflow2d_tpu/ops/pallas_step.py
 // _machinery.make_fused: its "general" body (lines 456-722, the packed-ctx
@@ -59,6 +63,30 @@
 // between cards.  At 2048^2 in 4 strips that is 1.0 MB a strip against
 // ~0.5 GB of kernel traffic, so the exchange is latency, not bytes.
 //
+// The general body replaces the general body of the TPU kernel
+// (pallas_step.py:456-722, called at :843) and its scatter form over a
+// tile table (:506-510): the general tiles of the single domain's frame,
+// of the step deck's remainder off the frame, and of each strip (its
+// whole list, or its "edge" and "inner" parts).  Its bound is bytes as
+// above: 300 bytes a node for gfc, 244 for pass12, +4 each with the heat
+// stage.  It has two forms.  BODY_GENERAL, which the solver's paths
+// launch, is one thread per node on direct global loads, a CTA per tile.
+// It runs at about half its bound on a full frame, and a lone tile takes
+// 7-8 us on an H100, 396 tiles (one wave at 3 CTAs an SM) only 2.1x as
+// long (PERF.md).  BODY_STAGED tests the reading that the time is a chain
+// of dependent loads (the ctx words, then the collapsed neighbour indices,
+// then ~40 neighbour loads).  The TPU kernel assembled each tile's window
+// in VMEM before computing (pallas_step.py:524-540); BODY_STAGED assembles
+// it in shared memory by cp.async, all of a tile's copies issued at once
+// and waited for once, on persistent CTAs that each run every G-th tile of
+// the list (gfc with the next tile's copies in flight while it computes).
+// The node arithmetic is one code (gfc_node/pass12_node read their
+// operands through a loader policy), so both forms give the same bits.
+// Measured, a lone tile takes as long staged as direct, so the time is
+// one thread's instruction chain, and past one wave the staged form's
+// extra copies and shared-memory loads make it the slower one.  It stays
+// compiled as the A/B candidate of chip_smoke.py, not on a path.
+//
 // Jacobi semantics: gfc_kernel reads the carry `cin` at +-1 and writes new
 // primitives into the other carry buffer `cout`; pass12_kernel reads the
 // scratch at +-1 and writes S and beta into `cout`.  The caller swaps the
@@ -68,6 +96,7 @@
 // expression.  nvcc contracts a*b+c into FMAs (no --use_fast_math: division
 // and sqrt stay IEEE), so results differ from the plain torch version at
 // the ulp level; chip_smoke.py states the tolerances.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -98,10 +127,14 @@ struct Consts {
                            // per-tile partials (a strip's own rows)
 };
 
-// kernel bodies (ops/fused_step.py _BODY_CODE)
+// kernel bodies (ops/fused_step.py _BODY_CODE): GENERAL is the general
+// body on direct global loads, STAGED the same body on staged windows
 constexpr int BODY_GENERAL = 0;
 constexpr int BODY_SPEC = 1;
 constexpr int BODY_DUAL = 2;
+constexpr int BODY_STAGED = 3;
+
+constexpr int CTA_THREADS = TILE_X * TILE_Y;
 
 __device__ __forceinline__ bool ctx_bit(const uint32_t* w, int b) {
     return (w[b >> 5] >> (b & 31)) & 1u;
@@ -113,37 +146,85 @@ __device__ __forceinline__ bool ctx_bit(const uint32_t* w, int b) {
 #define MASK_EQ(name, e, spec_value) \
     (SPEC ? (spec_value) : ctx_bit(w, CTX_##name + (e)))
 
-// Neighbor indices with the reference's wall collapse: an absent neighbor
-// reads the node itself (core/step.neighbors over edge-replicated shifts).
+// The neighbours an operand is read at.
+enum Nb { NB_C = 0, NB_L, NB_R, NB_U, NB_D };
+
+// The reference's wall collapse: an absent neighbour reads the node itself
+// (core/step.neighbors over edge-replicated shifts).  l/r/u/d: the
+// neighbour exists.
+struct Collapse {
+    bool l, r, u, d;
+};
+
+template <bool SPEC>
+__device__ __forceinline__ Collapse collapse(const Consts& c,
+                                             const uint32_t* w, int i,
+                                             int j) {
+    Collapse k;
+    k.l = MASK(BXL, true) && i > 0;
+    k.r = MASK(BXR, true) && i < c.X - 1;
+    k.u = MASK(BYU, true) && j < c.Y - 1;
+    k.d = MASK(BYD, true) && j > 0;
+    return k;
+}
+
+// The node's neighbour flags (idXl, idXr, idYu, idYd) and the weights of
+// the one-sided differences they give.
 struct Stencil {
-    size_t n, nL, nR, nU, nD;
     float n1, n2, n3, n4, rn_n, rm_m;
 };
 
 template <bool SPEC>
-__device__ __forceinline__ Stencil make_stencil(
-        const Consts& c, const uint32_t* w, const int8_t* __restrict__ idn,
-        size_t P, int i, int j) {
+__device__ __forceinline__ Stencil make_stencil(const int8_t* id4) {
     Stencil st;
-    st.n = static_cast<size_t>(i) * c.Y + j;
-    const bool bXl = MASK(BXL, true), bXr = MASK(BXR, true);
-    const bool bYu = MASK(BYU, true), bYd = MASK(BYD, true);
-    st.nL = (bXl && i > 0) ? st.n - c.Y : st.n;
-    st.nR = (bXr && i < c.X - 1) ? st.n + c.Y : st.n;
-    st.nU = (bYu && j < c.Y - 1) ? st.n + 1 : st.n;
-    st.nD = (bYd && j > 0) ? st.n - 1 : st.n;
     if (SPEC) {
         st.n1 = st.n2 = st.n3 = st.n4 = 1.f;
         st.rn_n = st.rm_m = 0.5f;
     } else {
-        st.n1 = idn[st.n];
-        st.n2 = idn[P + st.n];
-        st.n3 = idn[2 * P + st.n];
-        st.n4 = idn[3 * P + st.n];
+        st.n1 = id4[0];
+        st.n2 = id4[1];
+        st.n3 = id4[2];
+        st.n4 = id4[3];
         st.rn_n = 1.f / fmaxf(st.n1 + st.n2, 1.f);
         st.rm_m = 1.f / fmaxf(st.n3 + st.n4, 1.f);
     }
     return st;
+}
+
+// Loader policies: the node bodies read every operand of a plane stack
+// (the carry for gfc, the scratch for pass12) through `at(plane, nb)`, so
+// the expressions, and nvcc's FMA contraction of them, are one code for
+// every body.
+//
+// Besides its stencil stack (`at`), a body reads a second stack at the
+// node only (`aux`): gfc the meta planes mf, pass12 the carry's beta.
+//
+// DirectSrc reads global memory at the collapsed neighbour indices (the
+// spec, dual and general bodies).
+struct DirectSrc {
+    const float* __restrict__ base;
+    const float* __restrict__ aux_base;
+    size_t P, n;
+    size_t nb[5];   // by Nb
+    __device__ __forceinline__ float at(int plane, int d) const {
+        return base[plane * P + nb[d]];
+    }
+    __device__ __forceinline__ float aux(int plane) const {
+        return aux_base[plane * P + n];
+    }
+};
+
+template <bool SPEC>
+__device__ __forceinline__ DirectSrc direct_src(const Consts& c,
+                                                const float* base,
+                                                const float* aux_base,
+                                                const uint32_t* w, size_t P,
+                                                int i, int j) {
+    const size_t n = static_cast<size_t>(i) * c.Y + j;
+    const Collapse k = collapse<SPEC>(c, w, i, j);
+    return DirectSrc{base, aux_base, P, n,
+                     {n, k.l ? n - c.Y : n, k.r ? n + c.Y : n,
+                      k.u ? n + 1 : n, k.d ? n - 1 : n}};
 }
 
 template <bool SPEC>
@@ -153,6 +234,277 @@ __device__ __forceinline__ void load_ctx(uint32_t* w,
 #pragma unroll
     for (int k = 0; k < CTX_N_WORDS; ++k)
         w[k] = SPEC ? 0u : static_cast<uint32_t>(ctxw[k * P + n]);
+}
+
+template <bool SPEC>
+__device__ __forceinline__ void load_idn(int8_t* id4,
+                                         const int8_t* __restrict__ idn,
+                                         size_t P, size_t n) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) id4[k] = SPEC ? 1 : idn[k * P + n];
+}
+
+// ---------------------------------------------------------------------------
+// The stencil window of a tile in shared memory (the general body).
+//
+// For each plane read at +-1 a window of (TILE_X + 2) rows x (TILE_Y + 2)
+// columns: the tile and one halo row and column on each side, copied from
+// clamped indices (a halo outside the grid, or outside a strip's extended
+// buffer, is never selected by the collapse: i > 0, i < X - 1, j > 0,
+// j < Y - 1).  A window row is WIN_ROW floats with the tile's first column
+// at WIN_J0, so the 32 interior columns start 16-byte aligned; the halo
+// columns sit at WIN_J0 - 1 and WIN_J0 + TILE_Y.  After the windows, at
+// the tile's own nodes ([plane][row][column]): each plane of the stencil
+// stack read at the node only, each plane of the aux stack, the 4 ctx
+// words (uint32) and the 4 neighbour flags (int8).  So every operand of
+// the tile is in shared memory after one wait.
+// ---------------------------------------------------------------------------
+constexpr int WIN_X = TILE_X + 2;
+constexpr int WIN_ROW = 40;
+constexpr int WIN_J0 = 4;
+constexpr int WIN_PLANE = WIN_X * WIN_ROW;
+static_assert(WIN_J0 + TILE_Y < WIN_ROW && WIN_J0 % 4 == 0
+              && WIN_ROW % 4 == 0, "window row layout");
+// floats of a stage after its windows: ctx words, then the int8 flags
+constexpr int WIN_META = CTX_N_WORDS * CTA_THREADS + CTA_THREADS;
+
+// The planes a body reads, by stage slot.  gfc: the carry planes S0
+// (rho), S4..S8 (the species and the turbulence), U, V and Tg at +-1
+// (window s holds plane(s)); S1..S3, p, Yc, R, CP, lam, mu and mu_t at the
+// node (centre tile k holds cplane(k)); of the meta planes (aux) l_min,
+// which every node reads (BGX, BGY, Uw and Vw only wall nodes read, from
+// global memory).
+struct GfcPlanes {
+    static constexpr int N = 9, NC = 13, NA = 1;
+    __host__ __device__ static constexpr int plane(int s) {
+        return s == 0 ? CARRY_S : s < 6 ? CARRY_S + 3 + s
+             : s == 6 ? CARRY_U : s == 7 ? CARRY_V : CARRY_TG;
+    }
+    __host__ __device__ static constexpr int slot(int p) {
+        return p == CARRY_S ? 0
+             : (p >= CARRY_S + 4 && p <= CARRY_S + 8) ? p - CARRY_S - 3
+             : p == CARRY_U ? 6 : p == CARRY_V ? 7 : p == CARRY_TG ? 8 : -1;
+    }
+    __host__ __device__ static constexpr int cplane(int k) {
+        return k < 3 ? CARRY_S + 1 + k : k == 3 ? CARRY_P
+             : k < 8 ? CARRY_YC + k - 4 : CARRY_R + k - 8;
+    }
+    __host__ __device__ static constexpr int cslot(int p) {
+        return (p >= CARRY_S + 1 && p <= CARRY_S + 3) ? p - CARRY_S - 1
+             : p == CARRY_P ? 3
+             : (p >= CARRY_YC && p <= CARRY_MU_T) ? p - CARRY_YC + 4 : -1;
+    }
+    __host__ __device__ static constexpr int aplane(int) { return META_LMIN; }
+    __host__ __device__ static constexpr int aslot(int p) {
+        return p == META_LMIN ? 0 : -1;
+    }
+};
+
+// pass12: the scratch's S, A and B of the 9 equations at +-1; its k and
+// eps sources and SrcAdd at the node; the carry's 9 beta planes (aux).
+struct Pass12Planes {
+    static constexpr int N = 27, NC = 3, NA = 9;
+    __host__ __device__ static constexpr int plane(int s) { return s; }
+    __host__ __device__ static constexpr int slot(int p) {
+        return p < SCR_S + 27 ? p : -1;
+    }
+    __host__ __device__ static constexpr int cplane(int k) {
+        return k == 0 ? SCR_SRC_K : k == 1 ? SCR_SRC_EPS : SCR_SRCADD_E;
+    }
+    __host__ __device__ static constexpr int cslot(int p) {
+        return p == SCR_SRC_K ? 0 : p == SCR_SRC_EPS ? 1
+             : p == SCR_SRCADD_E ? 2 : -1;
+    }
+    __host__ __device__ static constexpr int aplane(int k) {
+        return CARRY_BETA + k;
+    }
+    __host__ __device__ static constexpr int aslot(int p) {
+        return p - CARRY_BETA;
+    }
+};
+
+// floats of a stage: the windows, the node tiles, the ctx words and flags
+template <class Planes>
+__host__ __device__ constexpr int stage_floats() {
+    return Planes::N * WIN_PLANE + (Planes::NC + Planes::NA) * CTA_THREADS
+           + WIN_META;
+}
+
+// WindowSrc reads every operand from the stage: a windowed plane at the
+// collapsed window offsets, a plane read at the node from its node tile;
+// an aux plane without a node tile from global memory.
+template <class Planes>
+struct WindowSrc {
+    const float* win;                  // the stage
+    const float* __restrict__ aux_base;
+    size_t P, n;                       // the node in the grid
+    int t;                             // the node in its tile
+    int nb[5];                         // window offsets by Nb
+    __device__ __forceinline__ float at(int plane, int d) const {
+        const int s = Planes::slot(plane);
+        return s >= 0 ? win[s * WIN_PLANE + nb[d]]
+                      : node(Planes::cslot(plane));
+    }
+    __device__ __forceinline__ float aux(int plane) const {
+        const int s = Planes::aslot(plane);
+        return s >= 0 ? node(Planes::NC + s) : aux_base[plane * P + n];
+    }
+    __device__ __forceinline__ float node(int k) const {
+        return win[Planes::N * WIN_PLANE + k * CTA_THREADS + t];
+    }
+};
+
+// 16-byte copies need a 16-byte-aligned source: aligned stacks and ctx
+// words with Y % 4 == 0, aligned int8 flags with Y % 16 == 0.
+__device__ __forceinline__ bool vec_ok(const Consts& c, const void* base,
+                                       const void* aux, const void* ctxw) {
+    return ((reinterpret_cast<uintptr_t>(base)
+             | reinterpret_cast<uintptr_t>(aux)
+             | reinterpret_cast<uintptr_t>(ctxw)) & 15u) == 0
+           && c.Y % 4 == 0;
+}
+
+__device__ __forceinline__ bool vec_idn_ok(const Consts& c,
+                                           const void* idn) {
+    return (reinterpret_cast<uintptr_t>(idn) & 15u) == 0 && c.Y % 16 == 0;
+}
+
+// Issue the asynchronous copies of tile `tile`'s stage into `buf` (every
+// thread of the CTA takes part): the windows and node tiles of the stencil
+// stack `base`, the node tiles of the aux stack, the ctx words and the
+// neighbour flags, in 16-byte pieces where vec_ok/vec_idn_ok allow and the
+// tile is whole (a tile cut by the grid's last column copies 4-byte
+// pieces).  Each thread keeps one position in a plane (its row and
+// piece, so its source and destination offsets) and walks the planes, so
+// a copy costs a pointer step, not the index arithmetic.
+template <class Planes>
+__device__ __forceinline__ void stage_tile(
+        const Consts& c, float* buf, const float* __restrict__ base,
+        const float* __restrict__ aux, const int32_t* __restrict__ ctxw,
+        const int8_t* __restrict__ idn, int tile) {
+    constexpr int N = Planes::N, NODE = Planes::NC + Planes::NA;
+    const bool vec = vec_ok(c, base, aux, ctxw), vec_idn = vec_idn_ok(c, idn);
+    const size_t P = static_cast<size_t>(c.X) * c.Y;
+    const int i0 = (tile / c.nby) * TILE_X, j0 = (tile % c.nby) * TILE_Y;
+    const int t = threadIdx.y * TILE_Y + threadIdx.x;
+    const bool whole = j0 + TILE_Y <= c.Y;
+    auto row = [&](int r) {
+        return static_cast<size_t>(min(max(i0 + r, 0), c.X - 1)) * c.Y;
+    };
+    auto col = [&](int q) { return min(max(j0 + q, 0), c.Y - 1); };
+    auto node_plane = [&](int m) {
+        return m < Planes::NC ? base + Planes::cplane(m) * P
+                              : aux + Planes::aplane(m - Planes::NC) * P;
+    };
+    float* nt = buf + N * WIN_PLANE;          // the node tiles
+    uint32_t* cw = reinterpret_cast<uint32_t*>(nt + NODE * CTA_THREADS);
+    int8_t* id = reinterpret_cast<int8_t*>(cw + CTX_N_WORDS * CTA_THREADS);
+    if (vec && whole) {
+        // windows, interior columns: WIN_X rows x 8 pieces of 16 bytes a
+        // plane; 3 planes at a time
+        constexpr int PW = WIN_X * (TILE_Y / 4);
+        if (t < 3 * PW) {
+            const int r = (t % PW) / (TILE_Y / 4), k = t % (TILE_Y / 4);
+            const size_t src = row(r - 1) + j0 + 4 * k;
+            float* dst = buf + r * WIN_ROW + WIN_J0 + 4 * k;
+            for (int s = t / PW; s < N; s += 3)
+                __pipeline_memcpy_async(dst + s * WIN_PLANE,
+                                        base + Planes::plane(s) * P + src,
+                                        16);
+        }
+        // windows, the two halo columns: WIN_X rows x 2 a plane, 4 bytes
+        constexpr int PH = WIN_X * 2, GH = CTA_THREADS / PH;
+        if (t < GH * PH) {
+            const int r = (t % PH) / 2, side = t % 2;
+            const size_t src = row(r - 1) + col(side ? TILE_Y : -1);
+            float* dst = buf + r * WIN_ROW
+                         + (side ? WIN_J0 + TILE_Y : WIN_J0 - 1);
+            for (int s = t / PH; s < N; s += GH)
+                __pipeline_memcpy_async(dst + s * WIN_PLANE,
+                                        base + Planes::plane(s) * P + src,
+                                        4);
+        }
+        // node tiles and ctx words: TILE_X rows x 8 pieces of 16 bytes a
+        // plane; 4 planes at a time
+        constexpr int PN = TILE_X * (TILE_Y / 4);
+        const int r = (t % PN) / (TILE_Y / 4), k = t % (TILE_Y / 4);
+        const size_t src = row(r) + j0 + 4 * k;
+        const int dst = r * TILE_Y + 4 * k;
+        for (int m = t / PN; m < NODE; m += CTA_THREADS / PN)
+            __pipeline_memcpy_async(nt + m * CTA_THREADS + dst,
+                                    node_plane(m) + src, 16);
+        static_assert(CTA_THREADS / PN == CTX_N_WORDS, "a ctx word each");
+        __pipeline_memcpy_async(cw + (t / PN) * CTA_THREADS + dst,
+                                ctxw + (t / PN) * P + src, 16);
+    } else {
+        // 4-byte pieces: a thread holds one or two positions of a window
+        // and one of a node tile
+        constexpr int WE = WIN_X * (TILE_Y + 2);
+        for (int q = t; q < WE; q += CTA_THREADS) {
+            const int r = q / (TILE_Y + 2), k = q % (TILE_Y + 2);
+            const size_t src = row(r - 1) + col(k - 1);
+            float* dst = buf + r * WIN_ROW + WIN_J0 - 1 + k;
+            for (int s = 0; s < N; ++s)
+                __pipeline_memcpy_async(dst + s * WIN_PLANE,
+                                        base + Planes::plane(s) * P + src,
+                                        4);
+        }
+        const size_t src = row(t / TILE_Y) + col(t % TILE_Y);
+        for (int m = 0; m < NODE; ++m)
+            __pipeline_memcpy_async(nt + m * CTA_THREADS + t,
+                                    node_plane(m) + src, 4);
+        for (int w = 0; w < CTX_N_WORDS; ++w)
+            __pipeline_memcpy_async(cw + w * CTA_THREADS + t,
+                                    ctxw + w * P + src, 4);
+    }
+    if (vec_idn && whole) {
+        // 4 flags x TILE_X rows x 2 pieces of 16 bytes
+        constexpr int PI = TILE_X * (TILE_Y / 16);
+        if (t < 4 * PI) {
+            const int f = t / PI, r = (t % PI) / (TILE_Y / 16);
+            const int k = t % (TILE_Y / 16);
+            __pipeline_memcpy_async(id + f * CTA_THREADS + r * TILE_Y + 16 * k,
+                                    idn + f * P + row(r) + j0 + 16 * k, 16);
+        }
+    } else {
+        // no copy narrower than 4 bytes: plain loads, visible after the
+        // barrier that precedes the tile's compute
+        const size_t src = row(t / TILE_Y) + col(t % TILE_Y);
+        for (int f = 0; f < 4; ++f)
+            id[f * CTA_THREADS + t] = idn[f * P + src];
+    }
+}
+
+// The staged operands of this thread's node (li, lj) = (threadIdx.y,
+// threadIdx.x) of the tile in stage `buf`.
+template <bool SPEC, class Planes>
+__device__ __forceinline__ WindowSrc<Planes> window_src(
+        const Consts& c, const float* buf, const float* aux_base,
+        const uint32_t* w, size_t P, int i, int j) {
+    const int o = (threadIdx.y + 1) * WIN_ROW + WIN_J0 + threadIdx.x;
+    const Collapse k = collapse<SPEC>(c, w, i, j);
+    return WindowSrc<Planes>{buf, aux_base, P,
+                             static_cast<size_t>(i) * c.Y + j,
+                             static_cast<int>(threadIdx.y * TILE_Y
+                                              + threadIdx.x),
+                             {o, k.l ? o - WIN_ROW : o,
+                              k.r ? o + WIN_ROW : o, k.u ? o + 1 : o,
+                              k.d ? o - 1 : o}};
+}
+
+template <class Planes>
+__device__ __forceinline__ void window_ctx(uint32_t* w, int8_t* id4,
+                                           const float* buf) {
+    const int t = threadIdx.y * TILE_Y + threadIdx.x;
+    const uint32_t* cw = reinterpret_cast<const uint32_t*>(
+        buf + Planes::N * WIN_PLANE
+        + (Planes::NC + Planes::NA) * CTA_THREADS);
+    const int8_t* id =
+        reinterpret_cast<const int8_t*>(cw + CTX_N_WORDS * CTA_THREADS);
+#pragma unroll
+    for (int k = 0; k < CTX_N_WORDS; ++k) w[k] = cw[k * CTA_THREADS + t];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) id4[k] = id[k * CTA_THREADS + t];
 }
 
 // Table::GetVal (config/tables.table_lookup): telescoped slope form for
@@ -208,20 +560,19 @@ __device__ __forceinline__ float mixture(const float* __restrict__ chemf,
 // k-eps, the per-node dt limit, chemistry).  Returns the Tg<0 and
 // frozen-dt-overrun flags of the node.
 // ---------------------------------------------------------------------------
-template <bool SPEC>
+// `src` reads the carry `cin` (through the node's collapse) and the meta
+// planes mf (aux), `w` holds the node's ctx words, `st` its neighbour
+// flags.
+template <bool SPEC, class Src>
 __device__ __forceinline__ void gfc_node(
-        const Consts& c, const float* __restrict__ cin,
-        float* __restrict__ cout, float* __restrict__ scr,
-        const int8_t* __restrict__ idn, const float* __restrict__ mf,
-        const int32_t* __restrict__ ctxw, const float* __restrict__ chemf,
-        const int32_t* __restrict__ chemi, float dt, float cfl_scen,
-        bool mu_t_iter, int i, int j, bool& uns, bool& ovr) {
-    const size_t P = static_cast<size_t>(c.X) * c.Y;
-    uint32_t w[CTX_N_WORDS];
-    load_ctx<SPEC>(w, ctxw, P, static_cast<size_t>(i) * c.Y + j);
-    const Stencil st = make_stencil<SPEC>(c, w, idn, P, i, j);
-    const size_t n = st.n;
-    auto ld = [&](int plane, size_t idx) { return cin[plane * P + idx]; };
+        const Consts& c, const Src& src, const uint32_t* w,
+        const Stencil& st, float* __restrict__ cout,
+        float* __restrict__ scr, const float* __restrict__ chemf,
+        const int32_t* __restrict__ chemi,
+        float dt, float cfl_scen, bool mu_t_iter, bool& uns, bool& ovr) {
+    const size_t P = src.P;
+    const size_t n = src.n;
+    auto ld = [&](int plane, int d) { return src.at(plane, d); };
 
     const bool active = MASK(ACTIVE, true);
     const bool solid = MASK(SOLID, false);
@@ -253,19 +604,19 @@ __device__ __forceinline__ void gfc_node(
     };
 
     // ---------------- gradients (deeps2d_core.cpp:1169-1237) --------------
-    const float rho_c = ld(CARRY_S, n);
+    const float rho_c = ld(CARRY_S, NB_C);
     const float rho_cs = rho_c != 0.f ? rho_c : 1.f;
     const float r_rho_c = 1.f / rho_cs;
     auto div_rho_c = [&](float a) {
         return c.fast_math ? a * r_rho_c : a / rho_cs;
     };
     float dro_x[4], dro_y[4];
-    float air_R = ld(CARRY_S, st.nR), air_L = ld(CARRY_S, st.nL);
-    float air_U = ld(CARRY_S, st.nU), air_D = ld(CARRY_S, st.nD);
+    float air_R = ld(CARRY_S, NB_R), air_L = ld(CARRY_S, NB_L);
+    float air_U = ld(CARRY_S, NB_U), air_D = ld(CARRY_S, NB_D);
 #pragma unroll
     for (int k = 4; k < 7; ++k) {
-        const float sR = ld(CARRY_S + k, st.nR), sL = ld(CARRY_S + k, st.nL);
-        const float sU = ld(CARRY_S + k, st.nU), sD = ld(CARRY_S + k, st.nD);
+        const float sR = ld(CARRY_S + k, NB_R), sL = ld(CARRY_S + k, NB_L);
+        const float sU = ld(CARRY_S + k, NB_U), sD = ld(CARRY_S + k, NB_D);
         dro_x[k - 4] = g_dydx ? (sR - sL) * dx1nn : 0.f;
         dro_y[k - 4] = g_dydy ? (sU - sD) * dy1mm : 0.f;
         air_R = air_R - (dydx_ok ? sR : 0.f);
@@ -276,37 +627,37 @@ __device__ __forceinline__ void gfc_node(
     dro_x[3] = g_dydx ? (air_R - air_L) * dx1nn : 0.f;
     dro_y[3] = g_dydy ? (air_U - air_D) * dy1mm : 0.f;
 
-    const float dUdx = active ? grad_x(ld(CARRY_U, st.nR), ld(CARRY_U, st.nL))
+    const float dUdx = active ? grad_x(ld(CARRY_U, NB_R), ld(CARRY_U, NB_L))
                               : 0.f;
-    const float dVdx = active ? grad_x(ld(CARRY_V, st.nR), ld(CARRY_V, st.nL))
+    const float dVdx = active ? grad_x(ld(CARRY_V, NB_R), ld(CARRY_V, NB_L))
                               : 0.f;
-    const float dUdy = active ? grad_y(ld(CARRY_U, st.nU), ld(CARRY_U, st.nD))
+    const float dUdy = active ? grad_y(ld(CARRY_U, NB_U), ld(CARRY_U, NB_D))
                               : 0.f;
-    const float dVdy = active ? grad_y(ld(CARRY_V, st.nU), ld(CARRY_V, st.nD))
+    const float dVdy = active ? grad_y(ld(CARRY_V, NB_U), ld(CARRY_V, NB_D))
                               : 0.f;
-    const float dkdx = km ? div_rho_c(grad_x(ld(CARRY_S + 7, st.nR),
-                                             ld(CARRY_S + 7, st.nL)))
+    const float dkdx = km ? div_rho_c(grad_x(ld(CARRY_S + 7, NB_R),
+                                             ld(CARRY_S + 7, NB_L)))
                           : 0.f;
-    const float dkdy = km ? div_rho_c(grad_y(ld(CARRY_S + 7, st.nU),
-                                             ld(CARRY_S + 7, st.nD)))
+    const float dkdy = km ? div_rho_c(grad_y(ld(CARRY_S + 7, NB_U),
+                                             ld(CARRY_S + 7, NB_D)))
                           : 0.f;
-    const float depsdx = em ? div_rho_c(grad_x(ld(CARRY_S + 8, st.nR),
-                                               ld(CARRY_S + 8, st.nL)))
+    const float depsdx = em ? div_rho_c(grad_x(ld(CARRY_S + 8, NB_R),
+                                               ld(CARRY_S + 8, NB_L)))
                             : 0.f;
-    const float depsdy = em ? div_rho_c(grad_y(ld(CARRY_S + 8, st.nU),
-                                               ld(CARRY_S + 8, st.nD)))
+    const float depsdy = em ? div_rho_c(grad_y(ld(CARRY_S + 8, NB_U),
+                                               ld(CARRY_S + 8, NB_D)))
                             : 0.f;
     const float dTdx = active
-        ? (ld(CARRY_TG, st.nR) - ld(CARRY_TG, st.nL)) * dx1nn : 0.f;
+        ? (ld(CARRY_TG, NB_R) - ld(CARRY_TG, NB_L)) * dx1nn : 0.f;
     const float dTdy = active
-        ? (ld(CARRY_TG, st.nU) - ld(CARRY_TG, st.nD)) * dy1mm : 0.f;
+        ? (ld(CARRY_TG, NB_U) - ld(CARRY_TG, NB_D)) * dy1mm : 0.f;
 
     // ---------------- FillNode2D (hyper_flow_node.hpp:374-600) ------------
     float s[9];
 #pragma unroll
-    for (int e = 0; e < 9; ++e) s[e] = ld(CARRY_S + e, n);
+    for (int e = 0; e < 9; ++e) s[e] = ld(CARRY_S + e, NB_C);
     const float rho = s[0];
-    const float CP = ld(CARRY_CP, n), R = ld(CARRY_R, n);
+    const float CP = ld(CARRY_CP, NB_C), R = ld(CARRY_R, NB_C);
     const float cpr = CP - R;
     const float k_cpcv = cpr != 0.f ? CP / cpr : 2.f;
     const bool guard = !solid && rho != 0.f && k_cpcv >= 1.f;
@@ -314,13 +665,13 @@ __device__ __forceinline__ void gfc_node(
     const float r_rho = 1.f / rho_s;
     auto div_rho = [&](float a) { return c.fast_math ? a * r_rho : a / rho_s; };
 
-    const float U0 = ld(CARRY_U, n), V0 = ld(CARRY_V, n);
+    const float U0 = ld(CARRY_U, NB_C), V0 = ld(CARRY_V, NB_C);
     float U = u_const ? U0 : div_rho(s[1]);
     float V = v_const ? V0 : div_rho(s[2]);
     if (u_const) s[1] = U * rho;
     if (v_const) s[2] = V * rho;
-    const float mu = ld(CARRY_MU, n), lam = ld(CARRY_LAM, n);
-    const float mu_t0 = ld(CARRY_MU_T, n);
+    const float mu = ld(CARRY_MU, NB_C), lam = ld(CARRY_LAM, NB_C);
+    const float mu_t0 = ld(CARRY_MU_T, NB_C);
     float mu_t = mu_t0;
     const bool is_mu_t = fc || mu_t_iter;
 
@@ -329,7 +680,7 @@ __device__ __forceinline__ void gfc_node(
     float Sk = s[7], Se = s[8];
     const float tmp1 = dUdy + dVdx;
     const float tmp3 = dUdx * dUdx + dVdy * dVdy;
-    const float l_base = fmaxf(mf[META_LMIN * P + n], c.min_dxdy) * F(0.41);
+    const float l_base = fmaxf(src.aux(META_LMIN), c.min_dxdy) * F(0.41);
     const float l_s = l_base != 0.f ? l_base : 1.f;
     float mu_t_ke = mu_t == 0.f ? rho * l_base * l_base * grad_mag : mu_t;
     const float G = mu_t_ke * (tmp1 * tmp1 + F(2.0) * tmp3);
@@ -372,14 +723,14 @@ __device__ __forceinline__ void gfc_node(
     if (c.has_walls) {
         if (wall_law) {
             const float wm = sqrtf(U * U + V * V + F(1.e-30));
-            s[1] = wm * mf[META_BGX * P + n];
-            s[2] = wm * mf[META_BGY * P + n];
+            s[1] = wm * src.aux(META_BGX);
+            s[2] = wm * src.aux(META_BGY);
             U = div_rho(s[1]);
             V = div_rho(s[2]);
         }
         if (wall_ns) {
-            U = mf[META_UW * P + n];
-            V = mf[META_VW * P + n];
+            U = src.aux(META_UW);
+            V = src.aux(META_VW);
             s[1] = U * rho;
             s[2] = V * rho;
         }
@@ -437,14 +788,14 @@ __device__ __forceinline__ void gfc_node(
     for (int e = 0; e < 9; ++e) {
         scr[(SCR_A + e) * P + n] = guard ? an[e] : 0.f;
         scr[(SCR_B + e) * P + n] = guard ? bn[e] : 0.f;
-        if (!guard) s[e] = ld(CARRY_S + e, n);
+        if (!guard) s[e] = ld(CARRY_S + e, NB_C);
     }
     scr[SCR_SRC_K * P + n] = guard ? src7 : 0.f;
     scr[SCR_SRC_EPS * P + n] = guard ? src8 : 0.f;
     const float U_f = guard ? U : U0;
     const float V_f = guard ? V : V0;
-    const float p_f = guard ? p_new : ld(CARRY_P, n);
-    const float Tg_f = guard ? Tg_new : ld(CARRY_TG, n);
+    const float p_f = guard ? p_new : ld(CARRY_P, NB_C);
+    const float Tg_f = guard ? Tg_new : ld(CARRY_TG, NB_C);
 
     // ---------------- instability and the local dt (1246-1327) ------------
     uns = active && Tg_f < 0.f;
@@ -508,7 +859,8 @@ __device__ __forceinline__ void gfc_node(
     const float Yc[4] = {Yfu, Yox, Ycp, Yair};
 #pragma unroll
     for (int k = 0; k < 4; ++k)
-        cout[(CARRY_YC + k) * P + n] = active ? Yc[k] : ld(CARRY_YC + k, n);
+        cout[(CARRY_YC + k) * P + n] = active ? Yc[k]
+                                              : ld(CARRY_YC + k, NB_C);
     cout[CARRY_R * P + n] = active ? R_new : R;
     cout[CARRY_CP * P + n] = active ? CP_new : CP;
     cout[CARRY_LAM * P + n] = active ? lam_new : lam;
@@ -523,48 +875,101 @@ __device__ __forceinline__ void gfc_node(
 }
 
 // ---------------------------------------------------------------------------
-// pass12: core/step.pass12 for one node.  Accumulates the gated RMS
-// numerator/denominator and DD max per equation into acc[0..26].
+// pass12: core/step.pass12 for one node.  Hands the gated RMS numerator,
+// denominator and DD max of each equation to `acc` (below).
 // ---------------------------------------------------------------------------
-template <bool SPEC>
+constexpr int NQ = 27;   // RMS numerator, denominator, DD max x 9
+
+// The warp's share of tile partial q (sum for q < 18, else max) into
+// red[warp][q], lanes reduced by shuffles in a fixed order.  Every lane of
+// the warp takes part.
+__device__ __forceinline__ void warp_partial(float v, int q,
+                                             float (*red)[NQ]) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        const float o = __shfl_down_sync(0xffffffffu, v, off);
+        v = q < 18 ? v + o : fmaxf(v, o);
+    }
+    if (threadIdx.x == 0) red[threadIdx.y][q] = v;
+}
+
+// The tile's partials from red, the TILE_X warps in row order, into
+// part_f (after a barrier that follows the warps' writes).
+__device__ __forceinline__ void tile_partials(float (*red)[NQ], int tile,
+                                              float* __restrict__ part_f) {
+    if (threadIdx.y == 0 && threadIdx.x < NQ) {
+        const int q = threadIdx.x;
+        float v = red[0][q];
+        for (int r = 1; r < TILE_X; ++r)
+            v = q < 18 ? v + red[r][q] : fmaxf(v, red[r][q]);
+        part_f[NQ * tile + q] = v;
+    }
+}
+
+// Where pass12_node puts an equation's three terms: ArrayAcc keeps all 27
+// for pass12_partials at the end of the tile; WarpAcc reduces each over
+// the warp at once (the same shuffles, so the same bits), so the 27 never
+// live in registers together.
+struct ArrayAcc {
+    float v[NQ];
+    __device__ __forceinline__ void put(int e, float num, float den,
+                                        float ddm) {
+        v[e] = num;
+        v[9 + e] = den;
+        v[18 + e] = ddm;
+    }
+};
+
+struct WarpAcc {
+    float (*red)[NQ];
+    __device__ __forceinline__ void put(int e, float num, float den,
+                                        float ddm) const {
+        warp_partial(num, e, red);
+        warp_partial(den, 9 + e, red);
+        warp_partial(ddm, 18 + e, red);
+    }
+};
+
+// `src` reads the scratch (through the node's collapse) and the carry's
+// beta (aux), `w` holds the node's ctx words, `st` its neighbour flags;
+// `own`: the node counts in the partials; `store`: it is a node of the
+// grid (a WarpAcc body runs every lane of a tile, and a lane past the
+// grid's edge stores nothing).
+template <bool SPEC, class Src, class Acc>
 __device__ __forceinline__ void pass12_node(
-        const Consts& c, const float* __restrict__ cin,
-        float* __restrict__ cout, const float* __restrict__ scr,
-        const int8_t* __restrict__ idn, const int32_t* __restrict__ ctxw,
-        float dt, float beta_scen, int i, int j, bool own, float* acc) {
-    const size_t P = static_cast<size_t>(c.X) * c.Y;
-    uint32_t w[CTX_N_WORDS];
-    load_ctx<SPEC>(w, ctxw, P, static_cast<size_t>(i) * c.Y + j);
-    const Stencil st = make_stencil<SPEC>(c, w, idn, P, i, j);
-    const size_t n = st.n;
+        const Consts& c, const Src& src, const uint32_t* w,
+        const Stencil& st, float* __restrict__ cout, float dt,
+        float beta_scen, bool own, bool store, Acc& acc) {
+    const size_t P = src.P;
+    const size_t n = src.n;
     const float dtdx = dt / c.dx;
     const float dtdy = dt / c.dy;
     const float bm = fminf(c.beta0, beta_scen);
 #pragma unroll
     for (int e = 0; e < 9; ++e) {
-        const float* Se = scr + (SCR_S + e) * P;
-        const float* Ae = scr + (SCR_A + e) * P;
-        const float* Be = scr + (SCR_B + e) * P;
+        auto Se = [&](int d) { return src.at(SCR_S + e, d); };
+        auto Ae = [&](int d) { return src.at(SCR_A + e, d); };
+        auto Be = [&](int d) { return src.at(SCR_B + e, d); };
         const bool evolve = MASK_EQ(EVOLVE, e, true);
         const bool efx = MASK_EQ(EV_FLUX_X, e, true);
         const bool eax = MASK_EQ(EV_AVG_X, e, false);
         const bool efy = MASK_EQ(EV_FLUX_Y, e, true);
         const bool eay = MASK_EQ(EV_AVG_Y, e, false);
         const bool ddmask = MASK_EQ(DDMASK, e, true);
-        const float S = Se[n], SL = Se[st.nL], SR = Se[st.nR];
-        const float SU = Se[st.nU], SD = Se[st.nD];
-        const float dSdx = efx ? (Ae[st.nR] - Ae[st.nL]) * st.rn_n : 0.f;
-        const float dSdy = efy ? (Be[st.nU] - Be[st.nD]) * st.rm_m : 0.f;
+        const float S = Se(NB_C), SL = Se(NB_L), SR = Se(NB_R);
+        const float SU = Se(NB_U), SD = Se(NB_D);
+        const float dSdx = efx ? (Ae(NB_R) - Ae(NB_L)) * st.rn_n : 0.f;
+        const float dSdy = efy ? (Be(NB_U) - Be(NB_D)) * st.rm_m : 0.f;
         float S_eff = eax ? (SL * st.n2 + SR * st.n1) * st.rn_n : S;
         S_eff = eay ? (SU * st.n3 + SD * st.n4) * st.rm_m : S_eff;
         const float blend = (c.dxx * (SL + SR) + c.dyy * (SU + SD)) * F(0.5);
-        const float beta = cin[(CARRY_BETA + e) * P + n];
-        const float src = e == 7 ? scr[SCR_SRC_K * P + n]
-                        : e == 8 ? scr[SCR_SRC_EPS * P + n] : 0.f;
+        const float beta = src.aux(CARRY_BETA + e);
+        const float sk = e == 7 ? src.at(SCR_SRC_K, NB_C)
+                       : e == 8 ? src.at(SCR_SRC_EPS, NB_C) : 0.f;
         float next = S_eff * beta + (F(1.0) - beta) * blend
-                     - (dtdx * dSdx + dtdy * dSdy) + src * dt;
+                     - (dtdx * dSdx + dtdy * dSdy) + sk * dt;
         if (!SPEC && c.heat && e == 3)
-            next = next + scr[SCR_SRCADD_E * P + n];   // + SrcAdd
+            next = next + src.at(SCR_SRCADD_E, NB_C);   // + SrcAdd
         if (!evolve) next = S_eff;
 
         // pass 2: residual and blending factor (1062-1121)
@@ -587,14 +992,17 @@ __device__ __forceinline__ void pass12_node(
             default: nb = beta;
         }
         const bool gate = ddmask && S_eff != 0.f;
-        cout[(CARRY_S + e) * P + n] = next;
-        cout[(CARRY_BETA + e) * P + n] = gate ? nb : beta;
-        if (gate && own) {
-            acc[e] = c.alt_rms ? (c.serial_rms ? abs_dd : abs_dd * abs_dd)
-                               : dd * dd;
-            acc[9 + e] = c.alt_rms ? S_eff * S_eff : 1.f;
-            acc[18 + e] = dd;
+        if (store) {
+            cout[(CARRY_S + e) * P + n] = next;
+            cout[(CARRY_BETA + e) * P + n] = gate ? nb : beta;
         }
+        const bool count = gate && own;
+        acc.put(e,
+                count ? (c.alt_rms ? (c.serial_rms ? abs_dd : abs_dd * abs_dd)
+                                   : dd * dd)
+                      : 0.f,
+                count ? (c.alt_rms ? S_eff * S_eff : 1.f) : 0.f,
+                count ? dd : 0.f);
     }
 }
 
@@ -671,7 +1079,8 @@ heat_kernel(const Consts c, const float* __restrict__ cout,
 }
 
 // The dual body runs every tile (CTA b on tile b) and reads its tile's flag
-// once per CTA (uniform branch); the other bodies run their tile list.
+// once per CTA (uniform branch); the spec and general bodies run their
+// tile list, CTA b on entry b.
 template <int BODY>
 __device__ __forceinline__ int cta_tile(const int32_t* __restrict__ tiles) {
     return BODY == BODY_DUAL ? static_cast<int>(blockIdx.x)
@@ -684,8 +1093,73 @@ __device__ __forceinline__ bool spec_tile(const int32_t* __restrict__ flags,
     return BODY == BODY_DUAL ? flags[tile] != 0 : BODY == BODY_SPEC;
 }
 
+// One node of gfc on direct global loads.
+template <bool SPEC>
+__device__ __forceinline__ void gfc_direct(
+        const Consts& c, const float* __restrict__ cin,
+        float* __restrict__ cout, float* __restrict__ scr,
+        const int8_t* __restrict__ idn, const float* __restrict__ mf,
+        const int32_t* __restrict__ ctxw, const float* __restrict__ chemf,
+        const int32_t* __restrict__ chemi, float dt, float cfl_scen,
+        bool mu_t_iter, int i, int j, bool& uns, bool& ovr) {
+    const size_t P = static_cast<size_t>(c.X) * c.Y;
+    const size_t n = static_cast<size_t>(i) * c.Y + j;
+    uint32_t w[CTX_N_WORDS];
+    int8_t id4[4];
+    load_ctx<SPEC>(w, ctxw, P, n);
+    load_idn<SPEC>(id4, idn, P, n);
+    gfc_node<SPEC>(c, direct_src<SPEC>(c, cin, mf, w, P, i, j), w,
+                   make_stencil<SPEC>(id4), cout, scr, chemf, chemi, dt,
+                   cfl_scen, mu_t_iter, uns, ovr);
+}
+
+// One node of pass12 on direct global loads.
+template <bool SPEC>
+__device__ __forceinline__ void pass12_direct(
+        const Consts& c, const float* __restrict__ cin,
+        float* __restrict__ cout, const float* __restrict__ scr,
+        const int8_t* __restrict__ idn, const int32_t* __restrict__ ctxw,
+        float dt, float beta_scen, int i, int j, bool own, ArrayAcc& acc) {
+    const size_t P = static_cast<size_t>(c.X) * c.Y;
+    const size_t n = static_cast<size_t>(i) * c.Y + j;
+    uint32_t w[CTX_N_WORDS];
+    int8_t id4[4];
+    load_ctx<SPEC>(w, ctxw, P, n);
+    load_idn<SPEC>(id4, idn, P, n);
+    pass12_node<SPEC>(c, direct_src<SPEC>(c, scr, cin, w, P, i, j), w,
+                      make_stencil<SPEC>(id4), cout, dt, beta_scen, own,
+                      true, acc);
+}
+
+// The Tg<0 and dt-overrun counts of a tile over the window's rows (the
+// node is computed at every row; only the window's rows count).  A CTA
+// barrier.
+__device__ __forceinline__ void gfc_partials(const Consts& c, int i,
+                                             bool uns, bool ovr, int tile,
+                                             int32_t* __restrict__ part_i) {
+    const bool own = i >= c.x0 && i < c.x1;
+    const int n_uns = __syncthreads_count(uns && own);
+    const int n_ovr = __syncthreads_count(ovr && own);
+    if (threadIdx.x == 0 && threadIdx.y == 0) {
+        part_i[2 * tile] = n_uns;
+        part_i[2 * tile + 1] = n_ovr;
+    }
+}
+
+// The tile partials of pass12 in a fixed order: lanes of a warp (one row
+// of the tile), then the TILE_X warps in row order.  Ends with the thread
+// that writes them; `red` is free again after the caller's next barrier.
+__device__ __forceinline__ void pass12_partials(const ArrayAcc& acc,
+                                                float (*red)[NQ], int tile,
+                                                float* __restrict__ part_f) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) warp_partial(acc.v[q], q, red);
+    __syncthreads();
+    tile_partials(red, tile, part_f);
+}
+
 template <int BODY>
-__global__ void __launch_bounds__(TILE_X * TILE_Y)
+__global__ void __launch_bounds__(CTA_THREADS)
 gfc_kernel(const Consts c, const float* __restrict__ cin,
            float* __restrict__ cout, float* __restrict__ scr,
            const int8_t* __restrict__ idn, const float* __restrict__ mf,
@@ -699,24 +1173,21 @@ gfc_kernel(const Consts c, const float* __restrict__ cin,
     bool uns = false, ovr = false;
     if (i < c.X && j < c.Y) {
         if (spec_tile<BODY>(flags, tile))
-            gfc_node<true>(c, cin, cout, scr, idn, mf, ctxw, chemf, chemi,
-                           *dtp, aux[1], aux[2] > F(0.5), i, j, uns, ovr);
+            gfc_direct<true>(c, cin, cout, scr, idn, mf, ctxw, chemf, chemi,
+                             *dtp, aux[1], aux[2] > F(0.5), i, j, uns, ovr);
         else
-            gfc_node<false>(c, cin, cout, scr, idn, mf, ctxw, chemf, chemi,
-                            *dtp, aux[1], aux[2] > F(0.5), i, j, uns, ovr);
+            gfc_direct<false>(c, cin, cout, scr, idn, mf, ctxw, chemf, chemi,
+                              *dtp, aux[1], aux[2] > F(0.5), i, j, uns, ovr);
     }
-    // the node is computed at every row; only the window's rows count
-    const bool own = i >= c.x0 && i < c.x1;
-    const int n_uns = __syncthreads_count(uns && own);
-    const int n_ovr = __syncthreads_count(ovr && own);
-    if (threadIdx.x == 0 && threadIdx.y == 0) {
-        part_i[2 * tile] = n_uns;
-        part_i[2 * tile + 1] = n_ovr;
-    }
+    gfc_partials(c, i, uns, ovr, tile, part_i);
 }
 
+// 3 CTAs an SM (at most 85 registers) for the spec and general bodies:
+// unbounded, ptxas gives the general body 88 registers and so 2 CTAs an SM,
+// which ran a full general frame 28% slower on an H100 (PERF.md).  The
+// dual body keeps its own budget.
 template <int BODY>
-__global__ void __launch_bounds__(TILE_X * TILE_Y)
+__global__ void __launch_bounds__(CTA_THREADS, BODY == BODY_DUAL ? 1 : 3)
 pass12_kernel(const Consts c, const float* __restrict__ cin,
               float* __restrict__ cout, const float* __restrict__ scr,
               const int8_t* __restrict__ idn,
@@ -724,52 +1195,234 @@ pass12_kernel(const Consts c, const float* __restrict__ cin,
               const float* __restrict__ dtp, const float* __restrict__ aux,
               const int32_t* __restrict__ tiles,
               const int32_t* __restrict__ flags, float* __restrict__ part_f) {
-    constexpr int NQ = 27;   // RMS numerator, denominator, DD max x 9
     __shared__ float red[TILE_X][NQ];
     const int tile = cta_tile<BODY>(tiles);
     const int i = (tile / c.nby) * TILE_X + threadIdx.y;
     const int j = (tile % c.nby) * TILE_Y + threadIdx.x;
-    float acc[NQ];
+    ArrayAcc acc;
 #pragma unroll
-    for (int q = 0; q < NQ; ++q) acc[q] = 0.f;
+    for (int q = 0; q < NQ; ++q) acc.v[q] = 0.f;
     if (i < c.X && j < c.Y) {
         const bool own = i >= c.x0 && i < c.x1;
         if (spec_tile<BODY>(flags, tile))
-            pass12_node<true>(c, cin, cout, scr, idn, ctxw, *dtp, aux[0], i,
-                              j, own, acc);
+            pass12_direct<true>(c, cin, cout, scr, idn, ctxw, *dtp, aux[0],
+                                i, j, own, acc);
         else
-            pass12_node<false>(c, cin, cout, scr, idn, ctxw, *dtp, aux[0], i,
-                               j, own, acc);
+            pass12_direct<false>(c, cin, cout, scr, idn, ctxw, *dtp, aux[0],
+                                 i, j, own, acc);
     }
-    // tile partials in a fixed order: lanes of a warp (one row of the
-    // tile), then the TILE_X warps in row order
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-        float v = acc[q];
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-            const float o = __shfl_down_sync(0xffffffffu, v, off);
-            v = q < 18 ? v + o : fmaxf(v, o);
-        }
-        if (threadIdx.x == 0) red[threadIdx.y][q] = v;
-    }
-    __syncthreads();
-    if (threadIdx.y == 0 && threadIdx.x < NQ) {
-        const int q = threadIdx.x;
-        float v = red[0][q];
-        for (int r = 1; r < TILE_X; ++r)
-            v = q < 18 ? v + red[r][q] : fmaxf(v, red[r][q]);
-        part_f[NQ * tile + q] = v;
-    }
+    pass12_partials(acc, red, tile, part_f);
 }
 
 // ---------------------------------------------------------------------------
+// The staged general body (BODY_STAGED): persistent CTAs over the tile
+// list, each tile's operands staged in shared memory by cp.async
+// (stage_tile).  CTA b runs
+// entries b, b + G, b + 2G, ... of `tiles` (G = gridDim.x).  With NBUF = 2
+// stages it issues the copies of its next tile before it computes the
+// current one, so the next tile's round trip to memory overlaps this
+// tile's arithmetic; with NBUF = 1 it issues them after, and the other
+// CTAs of its SM (MINB or more) overlap it.  The node arithmetic is
+// gfc_node/pass12_node<false>, as in the general body; only where the
+// operands come from differs.
+// ---------------------------------------------------------------------------
+// Wait for the current tile's stage (the next tile's copies, when NBUF is
+// 2, stay in flight).
+template <int NBUF>
+__device__ __forceinline__ void wait_stage() {
+    if (NBUF > 1)
+        __pipeline_wait_prior(1);
+    else
+        __pipeline_wait_prior(0);
+    __syncthreads();
+}
+
+template <int NBUF, int MINB>
+__global__ void __launch_bounds__(CTA_THREADS, MINB)
+gfc_window_kernel(const Consts c, const float* __restrict__ cin,
+                  float* __restrict__ cout, float* __restrict__ scr,
+                  const int8_t* __restrict__ idn,
+                  const float* __restrict__ mf,
+                  const int32_t* __restrict__ ctxw,
+                  const float* __restrict__ chemf,
+                  const int32_t* __restrict__ chemi,
+                  const float* __restrict__ dtp,
+                  const float* __restrict__ aux,
+                  const int32_t* __restrict__ tiles, int n_tiles,
+                  int32_t* __restrict__ part_i) {
+    extern __shared__ __align__(16) float smem[];
+    constexpr int STAGE = stage_floats<GfcPlanes>();
+    const size_t P = static_cast<size_t>(c.X) * c.Y;
+    const float dt = *dtp, cfl_scen = aux[1];
+    const bool mu_t_iter = aux[2] > F(0.5);
+    int e = blockIdx.x;
+    stage_tile<GfcPlanes>(c, smem, cin, mf, ctxw, idn, tiles[e]);
+    __pipeline_commit();
+    for (int k = 0; e < n_tiles; e += gridDim.x, ++k) {
+        const int next = e + static_cast<int>(gridDim.x);
+        const float* buf = smem + (k % NBUF) * STAGE;
+        if (NBUF > 1) {
+            if (next < n_tiles)
+                stage_tile<GfcPlanes>(c, smem + ((k + 1) % NBUF) * STAGE,
+                                      cin, mf, ctxw, idn, tiles[next]);
+            __pipeline_commit();
+        }
+        wait_stage<NBUF>();
+        const int tile = tiles[e];
+        const int i = (tile / c.nby) * TILE_X + threadIdx.y;
+        const int j = (tile % c.nby) * TILE_Y + threadIdx.x;
+        bool uns = false, ovr = false;
+        if (i < c.X && j < c.Y) {
+            uint32_t w[CTX_N_WORDS];
+            int8_t id4[4];
+            window_ctx<GfcPlanes>(w, id4, buf);
+            gfc_node<false>(c,
+                            window_src<false, GfcPlanes>(c, buf, mf, w, P, i,
+                                                         j),
+                            w, make_stencil<false>(id4), cout, scr, chemf,
+                            chemi, dt, cfl_scen, mu_t_iter, uns, ovr);
+        }
+        // its barrier also frees `buf` for the next copies into it
+        gfc_partials(c, i, uns, ovr, tile, part_i);
+        if (NBUF == 1 && next < n_tiles) {
+            stage_tile<GfcPlanes>(c, smem, cin, mf, ctxw, idn, tiles[next]);
+            __pipeline_commit();
+        }
+    }
+}
+
+template <int NBUF, int MINB>
+__global__ void __launch_bounds__(CTA_THREADS, MINB)
+pass12_window_kernel(const Consts c, const float* __restrict__ cin,
+                     float* __restrict__ cout,
+                     const float* __restrict__ scr,
+                     const int8_t* __restrict__ idn,
+                     const int32_t* __restrict__ ctxw,
+                     const float* __restrict__ dtp,
+                     const float* __restrict__ aux,
+                     const int32_t* __restrict__ tiles, int n_tiles,
+                     float* __restrict__ part_f) {
+    extern __shared__ __align__(16) float smem[];
+    __shared__ float red[TILE_X][NQ];
+    const WarpAcc acc{red};
+    constexpr int STAGE = stage_floats<Pass12Planes>();
+    const size_t P = static_cast<size_t>(c.X) * c.Y;
+    const float dt = *dtp, beta_scen = aux[0];
+    int e = blockIdx.x;
+    stage_tile<Pass12Planes>(c, smem, scr, cin, ctxw, idn, tiles[e]);
+    __pipeline_commit();
+    for (int k = 0; e < n_tiles; e += gridDim.x, ++k) {
+        const int next = e + static_cast<int>(gridDim.x);
+        const float* buf = smem + (k % NBUF) * STAGE;
+        if (NBUF > 1) {
+            if (next < n_tiles)
+                stage_tile<Pass12Planes>(c, smem + ((k + 1) % NBUF) * STAGE,
+                                         scr, cin, ctxw, idn, tiles[next]);
+            __pipeline_commit();
+        }
+        wait_stage<NBUF>();
+        const int tile = tiles[e];
+        const int i = (tile / c.nby) * TILE_X + threadIdx.y;
+        const int j = (tile % c.nby) * TILE_Y + threadIdx.x;
+        // every lane runs the node (the warp reduces each equation's
+        // partials at once); a lane past the grid's edge reads its tile's
+        // clamped copies, stores nothing and counts nothing
+        const bool inside = i < c.X && j < c.Y;
+        uint32_t w[CTX_N_WORDS];
+        int8_t id4[4];
+        window_ctx<Pass12Planes>(w, id4, buf);
+        pass12_node<false>(c,
+                           window_src<false, Pass12Planes>(c, buf, cin, w, P,
+                                                           i, j),
+                           w, make_stencil<false>(id4), cout, dt, beta_scen,
+                           inside && i >= c.x0 && i < c.x1, inside, acc);
+        __syncthreads();
+        tile_partials(red, tile, part_f);
+        __syncthreads();   // `buf` and `red` are free again
+        if (NBUF == 1 && next < n_tiles) {
+            stage_tile<Pass12Planes>(c, smem, scr, cin, ctxw, idn,
+                                     tiles[next]);
+            __pipeline_commit();
+        }
+    }
+}
+
+// The stages a CTA holds and the CTAs an SM must hold, by kernel, chosen
+// by measurement on an H100 (PERF.md): gfc double-buffers (68 KB, 2 CTAs
+// an SM at 124 registers; at 3 it spills, and ran no faster); pass12 holds
+// one 61 KB stage at 3 CTAs an SM (80 registers without spills, since
+// WarpAcc keeps its partials out of registers; double-buffered, its 121 KB
+// would leave 1 CTA an SM).
+constexpr int GFC_NBUF = 2, GFC_MINB = 2;
+constexpr int PASS12_NBUF = 1, PASS12_MINB = 3;
+
+template <class Planes, int NBUF>
+constexpr size_t window_smem() {
+    return NBUF * sizeof(float) * stage_floats<Planes>();
+}
+
+// The persistent grid of a window kernel on the current device: the CTAs
+// an SM holds at its dynamic shared memory (cudaOccupancyMaxActiveBlocks
+// PerMultiprocessor) times the SM count, computed once per device and
+// kernel into `cache` (no call here synchronizes the device).  Returns
+// the CUDA error.
+constexpr int MAX_DEVICES = 64;
+
+static int window_grid(const void* fn, size_t smem, int* cache, int* ctas,
+                       int* per_sm) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+    if (cache[2 * dev] == 0) {
+        int n = 0, sms = 0;
+        err = cudaFuncSetAttribute(
+            fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (err == cudaSuccess)
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &n, fn, CTA_THREADS, smem);
+        if (err == cudaSuccess)
+            err = cudaDeviceGetAttribute(
+                &sms, cudaDevAttrMultiProcessorCount, dev);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        if (n < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+        cache[2 * dev] = n * sms;
+        cache[2 * dev + 1] = n;
+    }
+    *ctas = cache[2 * dev];
+    if (per_sm) *per_sm = cache[2 * dev + 1];
+    return 0;
+}
+
+// A window kernel with its dynamic shared memory and its grid cache.
+struct WindowKernel {
+    const void* fn;
+    size_t smem;
+    int* cache;
+    int grid(int* ctas, int* per_sm) const {
+        return window_grid(fn, smem, cache, ctas, per_sm);
+    }
+};
+
+static int g_gfc_grid[2 * MAX_DEVICES], g_pass12_grid[2 * MAX_DEVICES];
+
+static const WindowKernel GFC_WINDOW{
+    reinterpret_cast<const void*>(gfc_window_kernel<GFC_NBUF, GFC_MINB>),
+    window_smem<GfcPlanes, GFC_NBUF>(), g_gfc_grid};
+static const WindowKernel PASS12_WINDOW{
+    reinterpret_cast<const void*>(
+        pass12_window_kernel<PASS12_NBUF, PASS12_MINB>),
+    window_smem<Pass12Planes, PASS12_NBUF>(), g_pass12_grid};
+
+// ---------------------------------------------------------------------------
 // C entry points (loaded with ctypes by ops/build.py).  Each launches one
-// instantiation over `n_tiles` tiles of the device tile list `tiles` on
-// `stream` and returns cudaGetLastError().  `body` is BODY_*; the dual
-// body reads no tile list (`tiles` may be null, `n_tiles` is every tile)
-// and reads `flags` (int32 per tile id, 1 = spec), which the others
-// ignore.
+// kernel over `n_tiles` tiles of the device tile list `tiles` on `stream`
+// and returns cudaGetLastError() (0 without a launch when n_tiles is 0).
+// `body` is BODY_*: the staged body launches the window kernel on the
+// persistent grid, the others a CTA per tile; the dual body reads no tile
+// list (`tiles` may be null, `n_tiles` is every tile) and reads `flags`
+// (int32 per tile id, 1 = spec), which the others ignore.
 // ---------------------------------------------------------------------------
 extern "C" {
 
@@ -778,9 +1431,26 @@ int hf2d_gfc(int body, const void* consts, const void* cin, void* cout,
              const void* chemf, const void* chemi, const void* dt,
              const void* aux, const void* tiles, int n_tiles,
              const void* flags, void* part_i, void* stream) {
+    if (n_tiles == 0) return 0;
     const Consts c = *static_cast<const Consts*>(consts);
     const dim3 block(TILE_Y, TILE_X);
     auto s = static_cast<cudaStream_t>(stream);
+    if (body == BODY_STAGED) {
+        int ctas = 0;
+        const int err = GFC_WINDOW.grid(&ctas, nullptr);
+        if (err) return err;
+        gfc_window_kernel<GFC_NBUF, GFC_MINB>
+            <<<n_tiles < ctas ? n_tiles : ctas, block, GFC_WINDOW.smem, s>>>(
+            c, static_cast<const float*>(cin), static_cast<float*>(cout),
+            static_cast<float*>(scr), static_cast<const int8_t*>(idn),
+            static_cast<const float*>(mf), static_cast<const int32_t*>(ctxw),
+            static_cast<const float*>(chemf),
+            static_cast<const int32_t*>(chemi), static_cast<const float*>(dt),
+            static_cast<const float*>(aux),
+            static_cast<const int32_t*>(tiles), n_tiles,
+            static_cast<int32_t*>(part_i));
+        return static_cast<int>(cudaGetLastError());
+    }
 #define HF2D_GFC_ARGS                                                        \
     c, static_cast<const float*>(cin), static_cast<float*>(cout),           \
         static_cast<float*>(scr), static_cast<const int8_t*>(idn),          \
@@ -789,12 +1459,14 @@ int hf2d_gfc(int body, const void* consts, const void* cin, void* cout,
         static_cast<const int32_t*>(chemi), static_cast<const float*>(dt), \
         static_cast<const float*>(aux), static_cast<const int32_t*>(tiles), \
         static_cast<const int32_t*>(flags), static_cast<int32_t*>(part_i)
-    if (body == BODY_SPEC)
+    if (body == BODY_GENERAL)
+        gfc_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(HF2D_GFC_ARGS);
+    else if (body == BODY_SPEC)
         gfc_kernel<BODY_SPEC><<<n_tiles, block, 0, s>>>(HF2D_GFC_ARGS);
     else if (body == BODY_DUAL)
         gfc_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(HF2D_GFC_ARGS);
     else
-        gfc_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(HF2D_GFC_ARGS);
+        return static_cast<int>(cudaErrorInvalidValue);
 #undef HF2D_GFC_ARGS
     return static_cast<int>(cudaGetLastError());
 }
@@ -803,22 +1475,40 @@ int hf2d_pass12(int body, const void* consts, const void* cin, void* cout,
                 const void* scr, const void* idn, const void* ctxw,
                 const void* dt, const void* aux, const void* tiles,
                 int n_tiles, const void* flags, void* part_f, void* stream) {
+    if (n_tiles == 0) return 0;
     const Consts c = *static_cast<const Consts*>(consts);
     const dim3 block(TILE_Y, TILE_X);
     auto s = static_cast<cudaStream_t>(stream);
+    if (body == BODY_STAGED) {
+        int ctas = 0;
+        const int err = PASS12_WINDOW.grid(&ctas, nullptr);
+        if (err) return err;
+        pass12_window_kernel<PASS12_NBUF, PASS12_MINB>
+            <<<n_tiles < ctas ? n_tiles : ctas, block, PASS12_WINDOW.smem,
+               s>>>(
+            c, static_cast<const float*>(cin), static_cast<float*>(cout),
+            static_cast<const float*>(scr), static_cast<const int8_t*>(idn),
+            static_cast<const int32_t*>(ctxw), static_cast<const float*>(dt),
+            static_cast<const float*>(aux),
+            static_cast<const int32_t*>(tiles), n_tiles,
+            static_cast<float*>(part_f));
+        return static_cast<int>(cudaGetLastError());
+    }
 #define HF2D_PASS12_ARGS                                                     \
     c, static_cast<const float*>(cin), static_cast<float*>(cout),           \
         static_cast<const float*>(scr), static_cast<const int8_t*>(idn),    \
         static_cast<const int32_t*>(ctxw), static_cast<const float*>(dt),   \
         static_cast<const float*>(aux), static_cast<const int32_t*>(tiles), \
         static_cast<const int32_t*>(flags), static_cast<float*>(part_f)
-    if (body == BODY_SPEC)
+    if (body == BODY_GENERAL)
+        pass12_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
+            HF2D_PASS12_ARGS);
+    else if (body == BODY_SPEC)
         pass12_kernel<BODY_SPEC><<<n_tiles, block, 0, s>>>(HF2D_PASS12_ARGS);
     else if (body == BODY_DUAL)
         pass12_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(HF2D_PASS12_ARGS);
     else
-        pass12_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
-            HF2D_PASS12_ARGS);
+        return static_cast<int>(cudaErrorInvalidValue);
 #undef HF2D_PASS12_ARGS
     return static_cast<int>(cudaGetLastError());
 }
@@ -826,6 +1516,7 @@ int hf2d_pass12(int body, const void* consts, const void* cin, void* cout,
 int hf2d_heat(const void* consts, const void* cout, void* scr,
               const void* ctxw, const void* dt, const void* tiles,
               int n_tiles, void* stream) {
+    if (n_tiles == 0) return 0;
     const Consts c = *static_cast<const Consts*>(consts);
     const dim3 block(TILE_Y, TILE_X);
     heat_kernel<<<n_tiles, block, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -833,6 +1524,56 @@ int hf2d_heat(const void* consts, const void* cout, void* scr,
         static_cast<const int32_t*>(ctxw), static_cast<const float*>(dt),
         static_cast<const int32_t*>(tiles));
     return static_cast<int>(cudaGetLastError());
+}
+
+// Launch facts of one kernel, for the measurements of chip_smoke.py:
+// out[0] registers a thread, out[1] local memory bytes a thread (spills and
+// stack), out[2] static shared memory, out[3] the dynamic shared memory of
+// a launch, out[4] the CTAs of CTA_THREADS threads an SM holds at that
+// shared memory, out[5] the device's SM count.  `kernel` is 8 * stage +
+// body: stage 0 gfc, 1 pass12 (body BODY_*), 2 heat (body ignored).
+int hf2d_kernel_info(int kernel, int* out) {
+    const void* fn = nullptr;
+    const int stage = kernel / 8, body = kernel % 8;
+    size_t dyn = 0;
+    int ctas = 0, per_sm = 0, err = 0;
+    if (stage > 2 || (stage < 2 && body > BODY_STAGED))
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (stage < 2 && body == BODY_STAGED) {
+        const WindowKernel& k = stage == 0 ? GFC_WINDOW : PASS12_WINDOW;
+        fn = k.fn;
+        dyn = k.smem;
+        err = k.grid(&ctas, &per_sm);
+        if (err) return err;
+    } else if (stage == 0) {
+        fn = body == BODY_SPEC ? (const void*)gfc_kernel<BODY_SPEC>
+           : body == BODY_DUAL ? (const void*)gfc_kernel<BODY_DUAL>
+                               : (const void*)gfc_kernel<BODY_GENERAL>;
+    } else if (stage == 1) {
+        fn = body == BODY_SPEC ? (const void*)pass12_kernel<BODY_SPEC>
+           : body == BODY_DUAL ? (const void*)pass12_kernel<BODY_DUAL>
+                               : (const void*)pass12_kernel<BODY_GENERAL>;
+    } else {
+        fn = (const void*)heat_kernel;
+    }
+    cudaFuncAttributes attr;
+    cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+    int dev = 0, sms = 0;
+    if (e == cudaSuccess && dyn == 0)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
+                                                          CTA_THREADS, 0);
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    out[0] = attr.numRegs;
+    out[1] = static_cast<int>(attr.localSizeBytes);
+    out[2] = static_cast<int>(attr.sharedSizeBytes);
+    out[3] = static_cast<int>(dyn);
+    out[4] = per_sm;
+    out[5] = sms;
+    return 0;
 }
 
 const char* hf2d_error_string(int code) {

@@ -59,7 +59,8 @@ from ..core import flags as fl
 from ..core.physics import _safe_div, calc_heat_on_wall_sources
 from ..core.state import (_CHEM_PROPS, _CHEM_SPECIES, ChemTables, GridMeta,
                           SolverParams, SolverState)
-from ..core.static_ctx import build_packed_ctx, build_static_ctx
+from ..core.static_ctx import (_CTX_BOOL_PLANES, _CTX_BOOL_STACKS,
+                               build_packed_ctx, build_static_ctx)
 from ..core.step import (SlimState, StepAux, expand, gfc, has_heat_stage,
                          lead, make_aux, pass12, shrink, trail)
 
@@ -77,14 +78,20 @@ SCR_LAM_EFF = 29    # lam + lam_t after chemistry, written by gfc<general>
 SCR_SRCADD_E = 30   # SrcAdd of rhoE, written by heat, zeroed per chunk
 _PRIMS = 18   # carry planes from here on are written by gfc
 
-KERNEL_NAMES = ("gfc_kernel<spec>", "gfc_kernel<general>",
-                "pass12_kernel<spec>", "pass12_kernel<general>",
-                "heat_kernel", "gfc_kernel<dual>", "pass12_kernel<dual>")
+# the kernels the solver's paths launch, then the general body on staged
+# windows, which no path launches: it lost to the general body on an H100
+# (PERF.md, Findings) and stays as chip_smoke.py's A/B candidate
+PATH_KERNEL_NAMES = ("gfc_kernel<spec>", "gfc_kernel<general>",
+                     "pass12_kernel<spec>", "pass12_kernel<general>",
+                     "heat_kernel", "gfc_kernel<dual>", "pass12_kernel<dual>")
+KERNEL_NAMES = PATH_KERNEL_NAMES + ("gfc_kernel<staged>",
+                                    "pass12_kernel<staged>")
 DISPATCH_FORMS = ("lists", "dual")
 # "lists": on an H100 the dual form ran the 2048^2 walls+step+heat deck
 # slower (PERF.md, Findings)
 DEFAULT_DISPATCH = "lists"
-_BODY_CODE = {"general": 0, "spec": 1, "dual": 2}   # fused_step.cu BODY_*
+_BODY_CODE = {"general": 0, "spec": 1, "dual": 2,
+              "staged": 3}   # fused_step.cu BODY_*
 # tile subsets of a strip plan (make_tile_plan's ``halo``): "edge" holds
 # every tile with a row in the two halos or in the H own rows next to them,
 # "inner" the rest
@@ -144,8 +151,9 @@ class TilePlan:
         return self.nbx * self.nby
 
     def tiles(self, body: str, part: str = None) -> torch.Tensor:
-        """The tile list of the "spec" or the "general" body, or of its
-        ``part`` on a strip plan."""
+        """The tile list of the "spec" or the "general" body ("staged"
+        runs the general list), or of its ``part`` on a strip plan."""
+        body = "general" if body == "staged" else body
         if part is not None:
             return self.parts[body, part]
         return {"spec": self.spec_tiles, "general": self.general_tiles}[body]
@@ -211,6 +219,131 @@ def make_tile_plan(X: int, Y: int, spec_map, device, heat_map=None,
     return TilePlan(X, Y, nbx, nby, spec, dev(ids[spec]),
                     dev(ids[~spec]), dev(ids[heat]), dev(spec.reshape(-1)),
                     (halo, X - halo), parts)
+
+
+# ---------------------------------------------------------------------------
+# CPU mirror of the staged general body (csrc/fused_step.cu
+# gfc_window_kernel, pass12_window_kernel, stage_tile; the "staged" body,
+# which no solver path launches): its persistent schedule and the index
+# math of each copy into its stage (the analogue of Pallas
+# interpret=True; the CUDA kernel runs on the card only)
+# ---------------------------------------------------------------------------
+WIN_ROW, WIN_J0 = 40, 4     # fused_step.cu: floats a window row, column j0
+WIN_X = TILE[0] + 2         # window rows
+# carry plane of each field's first plane, and the scratch planes and the
+# meta plane the stages read (hf2d_ctx_bits.cuh CARRY_*, SCR_*, META_*)
+CARRY = {name: sum(n for _, n in CARRY_FIELDS[:k])
+         for k, (name, _) in enumerate(CARRY_FIELDS)}
+SCR_S, SCR_A, SCR_B, SCR_SRC_K, SCR_SRC_EPS = 0, 9, 18, 27, 28
+META_LMIN = 4       # FusedStep.mf: BGX, BGY, Uw, Vw, l_min
+# the planes each stage reads, by slot (fused_step.cu GfcPlanes,
+# Pass12Planes): at +-1 from its stencil stack (gfc the carry, pass12 the
+# scratch; a window each), at the node from the stencil stack and from its
+# aux stack (gfc the meta plane l_min, pass12 the carry's beta; a node
+# tile each)
+_S = CARRY["S"]
+STAGE_PLANES = {
+    "gfc": {"window": (_S, *range(_S + 4, _S + 9), CARRY["U"], CARRY["V"],
+                       CARRY["Tg"]),
+            "node": (*range(_S + 1, _S + 4), CARRY["p"],
+                     *range(CARRY["Yc"], CARRY["mu_t"] + 1)),
+            "aux": (META_LMIN,)},
+    "pass12": {"window": tuple(range(SCR_S, SCR_B + 9)),
+               "node": (SCR_SRC_K, SCR_SRC_EPS, SCR_SRCADD_E),
+               "aux": tuple(range(CARRY["beta"], CARRY["beta"] + 9))}}
+_BIT = {name: 9 * len(_CTX_BOOL_STACKS) + k
+        for k, name in enumerate(_CTX_BOOL_PLANES)}
+
+
+def persistent_schedule(n_tiles: int, ctas: int) -> list:
+    """The entries of a tile list that each CTA of the persistent launch
+    runs, in its order: the grid is G = min(n_tiles, ctas) and CTA b runs
+    entries b, b + G, b + 2G, ..."""
+    g = min(n_tiles, ctas)
+    return [list(range(b, n_tiles, g)) for b in range(g)]
+
+
+def window_copies(tile: int, X: int, Y: int, nby: int, n_slots: int,
+                  vec: bool):
+    """The copies stage_tile issues for the windows of ``tile``, element
+    by element (a 16-byte piece as its 4 elements): arrays (slot, offset in
+    the slot's window, source row, source column).  ``vec``: the stack
+    allows 16-byte pieces (16-byte aligned, Y % 4 == 0); a tile cut by the
+    grid's last column copies 4-byte pieces all the same."""
+    TX, TY = TILE
+    i0, j0 = (tile // nby) * TX, (tile % nby) * TY
+
+    def row(r):
+        return np.clip(i0 + r, 0, X - 1)
+
+    def col(q):
+        return np.clip(j0 + q, 0, Y - 1)
+
+    if vec and j0 + TY <= Y:
+        q = np.arange(n_slots * WIN_X * (TY // 4))
+        s, r, k = (q // (WIN_X * (TY // 4)), (q // (TY // 4)) % WIN_X,
+                   q % (TY // 4))
+        e = np.arange(4)
+        piece = (np.repeat(s, 4), ((r * WIN_ROW + WIN_J0 + 4 * k)[:, None]
+                                   + e).ravel(),
+                 np.repeat(row(r - 1), 4), ((j0 + 4 * k)[:, None]
+                                            + e).ravel())
+        q = np.arange(n_slots * WIN_X * 2)
+        s, r, side = q // (WIN_X * 2), (q // 2) % WIN_X, q % 2
+        halo = (s, r * WIN_ROW + np.where(side, WIN_J0 + TY, WIN_J0 - 1),
+                row(r - 1), col(np.where(side, TY, -1)))
+        return tuple(np.concatenate(ab) for ab in zip(piece, halo))
+    q = np.arange(n_slots * WIN_X * (TY + 2))
+    s, r, k = (q // (WIN_X * (TY + 2)), (q // (TY + 2)) % WIN_X,
+               q % (TY + 2))
+    return s, r * WIN_ROW + WIN_J0 - 1 + k, row(r - 1), col(k - 1)
+
+
+def stage_windows(planes: np.ndarray, stage: str, tile: int, nby: int,
+                  vec: bool) -> np.ndarray:
+    """(slots, WIN_X * WIN_ROW) windows of ``tile`` as stage_tile fills
+    them from the (n_planes, X, Y) stack ``planes`` (NaN where no copy
+    lands)."""
+    ids = STAGE_PLANES[stage]["window"]
+    X, Y = planes.shape[1:]
+    win = np.full((len(ids), WIN_X * WIN_ROW), np.nan, planes.dtype)
+    s, o, r, c = window_copies(tile, X, Y, nby, len(ids), vec)
+    win[s, o] = planes[np.asarray(ids)[s], r, c]
+    return win
+
+
+def stage_nodes(stack: np.ndarray, ids, tile: int, nby: int) -> np.ndarray:
+    """(len(ids),) + TILE node tiles of planes ``ids`` of an (n, X, Y)
+    stack at the tile's own nodes, as stage_tile copies them (rows and
+    columns past the grid clamped): the planes read at the node, the ctx
+    words and the neighbour flags."""
+    TX, TY = TILE
+    X, Y = stack.shape[1:]
+    rows = np.clip((tile // nby) * TX + np.arange(TX), 0, X - 1)
+    cols = np.clip((tile % nby) * TY + np.arange(TY), 0, Y - 1)
+    return stack[np.asarray(ids)][:, rows[:, None], cols[None, :]]
+
+
+def window_offsets(words: np.ndarray, tile: int, X: int, Y: int, nby: int):
+    """The window offsets each node of the tile reads at (C, L, R, U, D),
+    (5, TILE), from its staged ctx words and the collapse of
+    fused_step.cu (an absent neighbour reads the node itself), and the
+    (TILE) mask of the nodes inside the grid."""
+    TX, TY = TILE
+    i = (tile // nby) * TX + np.arange(TX)[:, None]
+    j = (tile % nby) * TY + np.arange(TY)[None, :]
+    w = words.astype(np.int64) & 0xFFFFFFFF
+
+    def bit(name):
+        b = _BIT[name]
+        return ((w[b // 32] >> (b % 32)) & 1).astype(bool)
+
+    o = (np.arange(TX)[:, None] + 1) * WIN_ROW + WIN_J0 + np.arange(TY)
+    offs = np.stack([o, np.where(bit("bXl") & (i > 0), o - WIN_ROW, o),
+                     np.where(bit("bXr") & (i < X - 1), o + WIN_ROW, o),
+                     np.where(bit("bYu") & (j < Y - 1), o + 1, o),
+                     np.where(bit("bYd") & (j > 0), o - 1, o)])
+    return offs, (i < X) & (j < Y)
 
 
 def heat_node_map(ctx) -> np.ndarray:
@@ -357,7 +490,8 @@ class FusedStep:
 
     def launch_gfc(self, body, cin, cout, scr, dt, aux, part_i):
         """One gfc_kernel instantiation over its tiles (CUDA tensors);
-        ``body`` is "spec", "general" or "dual"."""
+        ``body`` is "spec", "general", "dual" or "staged" (the window
+        kernel on its persistent grid)."""
         self._check_cuda(cin, cout, scr, dt, aux, self.mf, self.chemf)
         tiles, n_tiles = self.plan.launch_grid(body)
         self._launch("hf2d_gfc", f"gfc_kernel<{body}>", (
