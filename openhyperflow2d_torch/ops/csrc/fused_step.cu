@@ -2,11 +2,14 @@
 //
 //   gfc_kernel<BODY>     gradients -> FillNode2D (k-eps) -> dt field ->
 //                        Zeldovich chemistry, one thread per node
-//   heat_kernel          conjugate wall heat (CalcHeatOnWallSources) of
-//                        non-adiabatic walls, one thread per node of the
-//                        heat tiles
 //   pass12_kernel<BODY>  pass 1 (blending update) + pass 2 (residual,
-//                        blending factor, commit), one thread per node
+//                        blending factor, commit), one thread per node;
+//                        on decks with non-adiabatic walls the general
+//                        body computes its node's conjugate wall heat
+//                        source itself (CalcHeatOnWallSources, "folded")
+//   heat_kernel          the same heat stage as a launch of its own (the
+//                        separate form), one thread per node of the heat
+//                        tiles; no solver path launches it
 //   gfc_window_kernel,   the general body of both stages in a second form
 //   pass12_window_kernel (BODY_STAGED): persistent CTAs, each tile's
 //                        operands staged in shared memory (below); no
@@ -33,7 +36,11 @@
 // <spec> reads the scratch and beta (38 planes) and writes S and beta (18),
 // about 224 bytes.  The general body adds Yc, p, the 4 int8 neighbor
 // flags, 4 more meta planes and the 4 ctx words (about 545 bytes for
-// both).  At 2048^2, where 96% of the nodes run the spec body, that is
+// both); with the heat stage gfc also writes lam_eff (4 bytes), and the
+// folded pass12 reads Tg at the wall gas nodes and their solid
+// neighbours and lam_eff at the gas nodes (a few KB at 2048^2; the
+// solids' heat words are among the ctx words it reads anyway).  At
+// 2048^2, where 96% of the nodes run the spec body, that is
 // about 2 GB per iteration, so about 0.59 ms at 3.35 TB/s is the floor of
 // this two-launch form.  The design keeps the neighbor reads in L1/L2 (a CTA is
 // an 8 x 32 tile, warps run along the contiguous j axis), keeps the
@@ -41,12 +48,21 @@
 // (no atomics, so the diagnostics are deterministic).  The scratch round
 // trip is what a single fused launch per iteration would remove.
 //
-// heat_kernel reads the one ctx word that holds the heat bits (4 bytes) at
-// every node of the heat tiles, and Tg, lam_eff and the SrcAdd write only
-// at the wall gas nodes and their solid neighbors (+-2 around the wall): at
-// 2048^2 that is a few dozen tiles, so its time is the launch.  The dual
-// form trades the second launch of each stage for one kernel holding both
-// bodies, whose register budget is the larger body's; CTA b runs tile b.
+// The heat stage reads only what gfc wrote (Tg of `cout`, lam_eff of the
+// scratch, +-2 around a wall) and writes SrcAdd[rhoE] at the wall gas
+// node itself, which only pass12's general body reads, at the node; pass12
+// writes S and beta alone.  So a pass12 thread can compute its own node's
+// source with no grid-wide sync, where pass 1 of the energy equation adds
+// it: the fold keeps it in a register, and the SrcAdd plane's write, its
+// read and heat_kernel's launch go (the TPU kernel ran heat inside the
+// tile as well).  As its own
+// launch, heat_kernel reads the heat ctx word (4 bytes) at every node of
+// the heat tiles, and Tg, lam_eff and the SrcAdd write only at the wall
+// gas nodes and their solid neighbors: at 2048^2 a few dozen tiles, so its
+// time is the launch.  The dual form trades the second launch of each
+// stage for one kernel holding both bodies; CTA b runs tile b.  pass12's
+// dual body runs at the others' budget, 3 CTAs an SM, with its partials
+// reduced over the warp an equation at a time (pass12_kernel below).
 //
 // The same launches are the counterpart of the multi-chip kernel
 // (openhyperflow2d_tpu/parallel/shard_step.py make_pallas_shard_chunk,
@@ -68,8 +84,9 @@
 // tile table (:506-510): the general tiles of the single domain's frame,
 // of the step deck's remainder off the frame, and of each strip (its
 // whole list, or its "edge" and "inner" parts).  Its bound is bytes as
-// above: 300 bytes a node for gfc, 244 for pass12, +4 each with the heat
-// stage.  It has two forms.  BODY_GENERAL, which the solver's paths
+// above: 300 bytes a node for gfc (+4 with the heat stage), 244 for pass12
+// (folded, plus heat's reads at the wall nodes; +4 for the SrcAdd plane in
+// the separate form).  It has two forms.  BODY_GENERAL, which the solver's paths
 // launch, is one thread per node on direct global loads, a CTA per tile.
 // It runs at about half its bound on a full frame, and a lone tile takes
 // 7-8 us on an H100, 396 tiles (one wave at 3 CTAs an SM) only 2.1x as
@@ -125,6 +142,9 @@ struct Consts {
                            // pass12 adds SrcAdd of rhoE
     int x0, x1;            // window: only rows x0 <= i < x1 count in the
                            // per-tile partials (a strip's own rows)
+    int heat_fold;         // with heat: pass12's general body computes its
+                           // node's SrcAdd itself (else it reads the plane
+                           // heat_kernel wrote; the staged body always does)
 };
 
 // kernel bodies (ops/fused_step.py _BODY_CODE): GENERAL is the general
@@ -934,19 +954,24 @@ struct WarpAcc {
 // beta (aux), `w` holds the node's ctx words, `st` its neighbour flags;
 // `own`: the node counts in the partials; `store`: it is a node of the
 // grid (a WarpAcc body runs every lane of a tile, and a lane past the
-// grid's edge stores nothing).
-template <bool SPEC, class Src, class Acc>
+// grid's edge stores nothing); `heat()`: the node's SrcAdd of rhoE,
+// taken where c.heat (the general body only) at the energy equation.
+template <bool SPEC, class Src, class Heat, class Acc>
 __device__ __forceinline__ void pass12_node(
         const Consts& c, const Src& src, const uint32_t* w,
         const Stencil& st, float* __restrict__ cout, float dt,
-        float beta_scen, bool own, bool store, Acc& acc) {
+        float beta_scen, bool own, bool store, const Heat& heat, Acc& acc) {
     const size_t P = src.P;
     const size_t n = src.n;
     const float dtdx = dt / c.dx;
     const float dtdy = dt / c.dy;
     const float bm = fminf(c.beta0, beta_scen);
+    // the general body takes the energy equation first, so that the heat
+    // source's live values end before any partial is held (the equations
+    // are independent: the order moves no bit)
 #pragma unroll
-    for (int e = 0; e < 9; ++e) {
+    for (int k = 0; k < 9; ++k) {
+        const int e = SPEC ? k : k == 0 ? 3 : k <= 3 ? k - 1 : k;
         auto Se = [&](int d) { return src.at(SCR_S + e, d); };
         auto Ae = [&](int d) { return src.at(SCR_A + e, d); };
         auto Be = [&](int d) { return src.at(SCR_B + e, d); };
@@ -968,8 +993,7 @@ __device__ __forceinline__ void pass12_node(
                        : e == 8 ? src.at(SCR_SRC_EPS, NB_C) : 0.f;
         float next = S_eff * beta + (F(1.0) - beta) * blend
                      - (dtdx * dSdx + dtdy * dSdy) + sk * dt;
-        if (!SPEC && c.heat && e == 3)
-            next = next + src.at(SCR_SRCADD_E, NB_C);   // + SrcAdd
+        if (!SPEC && c.heat && e == 3) next = next + heat();   // + SrcAdd
         if (!evolve) next = S_eff;
 
         // pass 2: residual and blending factor (1062-1121)
@@ -1047,22 +1071,19 @@ __device__ __forceinline__ float heat_q(const Consts& c,
     return q;
 }
 
-__global__ void __launch_bounds__(TILE_X * TILE_Y)
-heat_kernel(const Consts c, const float* __restrict__ cout,
-            float* __restrict__ scr, const int32_t* __restrict__ ctxw,
-            const float* __restrict__ dtp,
-            const int32_t* __restrict__ tiles) {
-    const int tile = tiles[blockIdx.x];
-    const int i = (tile / c.nby) * TILE_X + threadIdx.y;
-    const int j = (tile % c.nby) * TILE_Y + threadIdx.x;
-    if (i >= c.X || j >= c.Y) return;
-    const size_t P = static_cast<size_t>(c.X) * c.Y;
-    const size_t n = static_cast<size_t>(i) * c.Y + j;
-    const uint32_t w = heat_word(ctxw, P, n);
-    // directions D, U, L, R, the last solid one wins; each reads the
-    // solid's q right after this gas node's own visit of it
-    const float ndt = -*dtp;
-    float src;
+// SrcAdd[rhoE] of node (i, j) with heat word `w` into `src`; false (and
+// `src` untouched) where the node has no hw_* bit.  The directions D, U,
+// L, R, the last solid one wins; each reads the solid's q right after this
+// gas node's own visit of it.  Reads only what gfc wrote: Tg of `cout` and
+// lam_eff of `scr` at +-2 around the node, and the solids' heat words.
+__device__ __forceinline__ bool heat_source(const Consts& c,
+                                            const float* __restrict__ cout,
+                                            const float* __restrict__ scr,
+                                            const int32_t* __restrict__ ctxw,
+                                            size_t P, int i, int j,
+                                            uint32_t w, float dt,
+                                            float& src) {
+    const float ndt = -dt;
     if (heat_bit(w, CTX_HW_RIGHT))
         src = ndt * heat_q(c, cout, scr, ctxw, P, min(i + 1, c.X - 1), j, 0)
               / c.dx;
@@ -1074,8 +1095,28 @@ heat_kernel(const Consts c, const float* __restrict__ cout,
     else if (heat_bit(w, CTX_HW_DOWN))
         src = ndt * heat_q(c, cout, scr, ctxw, P, i, max(j - 1, 0), 2) / c.dy;
     else
-        return;   // the plane keeps the chunk's zero
-    scr[SCR_SRCADD_E * P + n] = src;
+        return false;
+    return true;
+}
+
+// The heat stage as a launch of its own (the separate form): the SrcAdd
+// plane at the wall gas nodes of the heat tiles; every other node keeps
+// the chunk's zero.
+__global__ void __launch_bounds__(TILE_X * TILE_Y)
+heat_kernel(const Consts c, const float* __restrict__ cout,
+            float* __restrict__ scr, const int32_t* __restrict__ ctxw,
+            const float* __restrict__ dtp,
+            const int32_t* __restrict__ tiles) {
+    const int tile = tiles[blockIdx.x];
+    const int i = (tile / c.nby) * TILE_X + threadIdx.y;
+    const int j = (tile % c.nby) * TILE_Y + threadIdx.x;
+    if (i >= c.X || j >= c.Y) return;
+    const size_t P = static_cast<size_t>(c.X) * c.Y;
+    const size_t n = static_cast<size_t>(i) * c.Y + j;
+    float src;
+    if (heat_source(c, cout, scr, ctxw, P, i, j, heat_word(ctxw, P, n), *dtp,
+                    src))
+        scr[SCR_SRCADD_E * P + n] = src;
 }
 
 // The dual body runs every tile (CTA b on tile b) and reads its tile's flag
@@ -1113,22 +1154,35 @@ __device__ __forceinline__ void gfc_direct(
                    cfl_scen, mu_t_iter, uns, ovr);
 }
 
-// One node of pass12 on direct global loads.
-template <bool SPEC>
+// One node of pass12 on direct global loads.  With the heat stage, the
+// general body takes the node's SrcAdd at the energy equation: folded
+// (c.heat_fold), it computes it from gfc's Tg and lam_eff (heat_source;
+// nothing pass12 writes is read there), else it reads the plane
+// heat_kernel wrote.
+template <bool SPEC, class Acc>
 __device__ __forceinline__ void pass12_direct(
         const Consts& c, const float* __restrict__ cin,
         float* __restrict__ cout, const float* __restrict__ scr,
         const int8_t* __restrict__ idn, const int32_t* __restrict__ ctxw,
-        float dt, float beta_scen, int i, int j, bool own, ArrayAcc& acc) {
+        float dt, float beta_scen, int i, int j, bool own, bool store,
+        Acc& acc) {
     const size_t P = static_cast<size_t>(c.X) * c.Y;
     const size_t n = static_cast<size_t>(i) * c.Y + j;
     uint32_t w[CTX_N_WORDS];
     int8_t id4[4];
     load_ctx<SPEC>(w, ctxw, P, n);
     load_idn<SPEC>(id4, idn, P, n);
+    auto heat = [&]() {
+        float h = 0.f;
+        if (c.heat_fold)
+            heat_source(c, cout, scr, ctxw, P, i, j, w[CTX_HEAT_WORD], dt, h);
+        else
+            h = scr[SCR_SRCADD_E * P + n];
+        return h;
+    };
     pass12_node<SPEC>(c, direct_src<SPEC>(c, scr, cin, w, P, i, j), w,
                       make_stencil<SPEC>(id4), cout, dt, beta_scen, own,
-                      true, acc);
+                      store, heat, acc);
 }
 
 // The Tg<0 and dt-overrun counts of a tile over the window's rows (the
@@ -1182,12 +1236,18 @@ gfc_kernel(const Consts c, const float* __restrict__ cin,
     gfc_partials(c, i, uns, ovr, tile, part_i);
 }
 
-// 3 CTAs an SM (at most 85 registers) for the spec and general bodies:
-// unbounded, ptxas gives the general body 88 registers and so 2 CTAs an SM,
-// which ran a full general frame 28% slower on an H100 (PERF.md).  The
-// dual body keeps its own budget.
+// 3 CTAs an SM (at most 85 registers, so 80) for every body: unbounded,
+// ptxas gives the general body 88 registers and so 2 CTAs an SM, which ran
+// a full general frame 28% slower on an H100 (PERF.md).  The spec and
+// general bodies keep all 27 partials of a node to the end of the tile
+// (ArrayAcc); the dual body holds both bodies in one function, and reduces
+// each equation's partials over the warp at once (WarpAcc: the same
+// shuffles in the same order, so the same bits), so that the 27 are never
+// live together.  WarpAcc needs every lane of the warp in each shuffle, so
+// there a lane past the grid's edge runs the body at the grid's last row
+// and column, stores nothing and counts nothing.
 template <int BODY>
-__global__ void __launch_bounds__(CTA_THREADS, BODY == BODY_DUAL ? 1 : 3)
+__global__ void __launch_bounds__(CTA_THREADS, 3)
 pass12_kernel(const Consts c, const float* __restrict__ cin,
               float* __restrict__ cout, const float* __restrict__ scr,
               const int8_t* __restrict__ idn,
@@ -1199,19 +1259,29 @@ pass12_kernel(const Consts c, const float* __restrict__ cin,
     const int tile = cta_tile<BODY>(tiles);
     const int i = (tile / c.nby) * TILE_X + threadIdx.y;
     const int j = (tile % c.nby) * TILE_Y + threadIdx.x;
-    ArrayAcc acc;
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) acc.v[q] = 0.f;
-    if (i < c.X && j < c.Y) {
-        const bool own = i >= c.x0 && i < c.x1;
+    const bool inside = i < c.X && j < c.Y;
+    const bool own = inside && i >= c.x0 && i < c.x1;
+    if constexpr (BODY == BODY_DUAL) {
+        WarpAcc acc{red};
+        const int ic = min(i, c.X - 1), jc = min(j, c.Y - 1);
         if (spec_tile<BODY>(flags, tile))
             pass12_direct<true>(c, cin, cout, scr, idn, ctxw, *dtp, aux[0],
-                                i, j, own, acc);
+                                ic, jc, own, inside, acc);
         else
             pass12_direct<false>(c, cin, cout, scr, idn, ctxw, *dtp, aux[0],
-                                 i, j, own, acc);
+                                 ic, jc, own, inside, acc);
+        __syncthreads();
+        tile_partials(red, tile, part_f);
+    } else {
+        ArrayAcc acc;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) acc.v[q] = 0.f;
+        if (inside)
+            pass12_direct<BODY == BODY_SPEC>(c, cin, cout, scr, idn, ctxw,
+                                             *dtp, aux[0], i, j, own, true,
+                                             acc);
+        pass12_partials(acc, red, tile, part_f);
     }
-    pass12_partials(acc, red, tile, part_f);
 }
 
 // ---------------------------------------------------------------------------
@@ -1331,11 +1401,12 @@ pass12_window_kernel(const Consts c, const float* __restrict__ cin,
         uint32_t w[CTX_N_WORDS];
         int8_t id4[4];
         window_ctx<Pass12Planes>(w, id4, buf);
-        pass12_node<false>(c,
-                           window_src<false, Pass12Planes>(c, buf, cin, w, P,
-                                                           i, j),
-                           w, make_stencil<false>(id4), cout, dt, beta_scen,
-                           inside && i >= c.x0 && i < c.x1, inside, acc);
+        const WindowSrc<Pass12Planes> src =
+            window_src<false, Pass12Planes>(c, buf, cin, w, P, i, j);
+        // the separate form's SrcAdd plane, whatever c.heat_fold says
+        pass12_node<false>(c, src, w, make_stencil<false>(id4), cout, dt,
+                           beta_scen, inside && i >= c.x0 && i < c.x1, inside,
+                           [&]() { return src.at(SCR_SRCADD_E, NB_C); }, acc);
         __syncthreads();
         tile_partials(red, tile, part_f);
         __syncthreads();   // `buf` and `red` are free again

@@ -89,7 +89,7 @@ constexpr int SCR_B = 18;       // 9 planes: y-flux
 constexpr int SCR_SRC_K = 27;   // turbulence sources (the only nonzero Src)
 constexpr int SCR_SRC_EPS = 28;
 constexpr int SCR_LAM_EFF = 29;   // lam + lam_t after chemistry (gfc<general>)
-constexpr int SCR_SRCADD_E = 30;  // SrcAdd of rhoE (heat_kernel; 0 elsewhere)
+constexpr int SCR_SRCADD_E = 30;  // SrcAdd of rhoE (heat_kernel only)
 constexpr int N_SCRATCH = 31;
 
 // ---- meta planes ----------------------------------------------------------

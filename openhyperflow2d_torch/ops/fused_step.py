@@ -7,8 +7,11 @@ per-iteration loop and the epilogue ``gfc`` of ``make_pallas_chunk``
 
 1. freezes dt from the carried primitives (``scan_dt``, pallas_step.py:
    859-871), one iteration behind the reference's dt, as on the TPU path;
-2. runs ``gfc_kernel``, then ``heat_kernel`` on decks with non-adiabatic
-   walls next to solids, then ``pass12_kernel`` (ops/csrc/fused_step.cu);
+2. runs ``gfc_kernel``, then ``pass12_kernel`` (ops/csrc/fused_step.cu),
+   whose general body computes the conjugate wall heat source of its own
+   node on decks with non-adiabatic walls next to solids (the heat stage
+   folded; its separate form, ``heat_kernel`` between the two launches and
+   ``launch_pass12(..., fold=False)``, is an A/B candidate no path runs);
 3. combines the per-tile partials into the RMS, DD_max, unstable and
    dt_overrun diags (pallas_step.py:1014-1028).
 
@@ -21,7 +24,8 @@ Two dispatch forms issue gfc and pass12 (``dispatch``):
   runs the non-rectangular general remainder of a multi-rectangle cover.
 * ``"dual"``: one launch over all tiles, each CTA branching on a device
   per-tile flag to the specialized or the general body: the GPU form of
-  ``make_fused(body="dual")`` (pallas_step.py:702-718).
+  ``make_fused(body="dual")`` (pallas_step.py:702-718).  With the heat
+  stage folded an iteration is then two launches, as on the TPU.
 
 Each tile runs the same body in both forms, so they give the same bits.
 
@@ -35,9 +39,11 @@ even in a float64 run, as the TPU kernel's float32 scalar vector did
 ``FusedStep`` holds the kernels' wrappers and their plain torch versions
 (``gfc_plain``/``heat_plain``/``pass12_plain``: core/step.gfc without its
 heat stage, core/physics.calc_heat_on_wall_sources and core/step.pass12
-over the whole grid, returning the same planes and per-tile partials).  A wrapper runs the plain
-version for CPU tensors and launches its kernel for CUDA tensors; there is
-no other fallback.
+over the whole grid, ``pass12_plain`` with the heat source of
+``heat_source_plain`` or a given one, returning the same planes and
+per-tile partials).
+A wrapper runs the plain version for CPU tensors and launches its kernel
+for CUDA tensors; there is no other fallback.
 
 A tile plan carries a window of rows ``(x0, x1)``: every node is computed,
 but only the nodes with ``x0 <= i < x1`` count in the per-tile partials.
@@ -75,20 +81,25 @@ CARRY_FIELDS = (("S", 9), ("beta", 9), ("U", 1), ("V", 1), ("p", 1),
 N_CARRY = 31
 N_SCRATCH = 31
 SCR_LAM_EFF = 29    # lam + lam_t after chemistry, written by gfc<general>
-SCR_SRCADD_E = 30   # SrcAdd of rhoE, written by heat, zeroed per chunk
+SCR_SRCADD_E = 30   # SrcAdd of rhoE, written by heat_kernel and read by
+                    # the unfolded pass12 (the A/B candidates only)
 _PRIMS = 18   # carry planes from here on are written by gfc
 
-# the kernels the solver's paths launch, then the general body on staged
-# windows, which no path launches: it lost to the general body on an H100
-# (PERF.md, Findings) and stays as chip_smoke.py's A/B candidate
+# the kernels the solver's paths launch; then the forms no path launches,
+# which stay as chip_smoke.py's A/B candidates: heat_kernel, the heat stage
+# as a launch of its own (folded into pass12's general body, it saves the
+# launch and the SrcAdd plane's round trip and won the A/B on an H100), and
+# the general body on staged windows, which lost to the general body on an
+# H100 (PERF.md, Findings)
 PATH_KERNEL_NAMES = ("gfc_kernel<spec>", "gfc_kernel<general>",
                      "pass12_kernel<spec>", "pass12_kernel<general>",
-                     "heat_kernel", "gfc_kernel<dual>", "pass12_kernel<dual>")
-KERNEL_NAMES = PATH_KERNEL_NAMES + ("gfc_kernel<staged>",
+                     "gfc_kernel<dual>", "pass12_kernel<dual>")
+KERNEL_NAMES = PATH_KERNEL_NAMES + ("heat_kernel", "gfc_kernel<staged>",
                                     "pass12_kernel<staged>")
 DISPATCH_FORMS = ("lists", "dual")
-# "lists": on an H100 the dual form ran the 2048^2 walls+step+heat deck
-# slower (PERF.md, Findings)
+# "lists": on an H100 the dual form never beat it on the 2048^2
+# walls+step+heat deck, and the 2048^2 combustor's calls disagreed
+# (PERF.md, Findings)
 DEFAULT_DISPATCH = "lists"
 _BODY_CODE = {"general": 0, "spec": 1, "dual": 2,
               "staged": 3}   # fused_step.cu BODY_*
@@ -374,11 +385,11 @@ class KernelConsts(ctypes.Structure):
         "sig_f", "k0", "k0_div", "tf", "c_mu075")] + [
         ("hu", ctypes.c_float * 4)] + [(f, ctypes.c_int) for f in (
             "X", "Y", "nby", "has_walls", "fast_math", "bff", "alt_rms",
-            "serial_rms", "zeldovich", "heat", "x0", "x1")]
+            "serial_rms", "zeldovich", "heat", "x0", "x1", "heat_fold")]
 
 
-def kernel_consts(p: SolverParams, plan: TilePlan,
-                  heat: bool) -> KernelConsts:
+def kernel_consts(p: SolverParams, plan: TilePlan, heat: bool,
+                  fold: bool = True) -> KernelConsts:
     # ctypes rounds each double to float32, as the working dtype does
     return KernelConsts(
         dx=p.dx, dy=p.dy, dxx=p.dy / (p.dx + p.dy), dyy=p.dx / (p.dx + p.dy),
@@ -389,7 +400,7 @@ def kernel_consts(p: SolverParams, plan: TilePlan,
         fast_math=int(p.fast_math), bff=p.bff,
         alt_rms=int(p.isAlternateRMS), serial_rms=int(p.serial_rms_mode),
         zeldovich=int(p.chemistry == fl.CRM_ZELDOVICH), heat=int(heat),
-        x0=plan.window[0], x1=plan.window[1])
+        x0=plan.window[0], x1=plan.window[1], heat_fold=int(fold))
 
 
 def pack_chem(chem: ChemTables, p: SolverParams):
@@ -419,7 +430,9 @@ class FusedStep:
     wrappers and their plain versions, and a launch count per kernel
     instantiation (``launches``; a wrapper counts a launch where it
     launches, nowhere else).  ``dispatch`` is the form gfc and pass12 are
-    issued in (DISPATCH_FORMS)."""
+    issued in (DISPATCH_FORMS).  With the heat stage, pass12's general
+    body computes its nodes' heat source itself: an iteration launches no
+    heat_kernel (``iteration_launches``)."""
 
     def __init__(self, meta: GridMeta, params: SolverParams,
                  chem: ChemTables, plan: TilePlan, dispatch: str, ctx):
@@ -440,6 +453,8 @@ class FusedStep:
         self.zero_src = torch.zeros((fl.NUM_EQ, p.MaxX, p.MaxY),
                                     dtype=p.torch_dtype, device=meta.CT.device)
         self.consts = kernel_consts(p, plan, self.has_heat)
+        # pass12 reading heat_kernel's SrcAdd plane (launch_pass12's fold)
+        self.consts_unfolded = kernel_consts(p, plan, self.has_heat, False)
         # (X, 1) rows of the window, for the plain versions' partials
         rows = torch.arange(p.MaxX, device=meta.CT.device)[:, None]
         self.own = (rows >= plan.window[0]) & (rows < plan.window[1])
@@ -447,6 +462,13 @@ class FusedStep:
 
     def reset_launches(self) -> None:
         self.launches = dict.fromkeys(KERNEL_NAMES, 0)
+
+    def iteration_launches(self) -> list:
+        """The kernels one iteration launches, in order (no launch needs
+        CUDA to be planned)."""
+        bodies = self._bodies()
+        return ([f"gfc_kernel<{b}>" for b in bodies]
+                + [f"pass12_kernel<{b}>" for b in bodies])
 
     # ------------------------------------------------------------------
     # wrappers
@@ -501,13 +523,17 @@ class FusedStep:
             _ptr(aux), tiles, n_tiles, _ptr(self.plan.flags), _ptr(part_i)))
 
     def launch_pass12(self, body, cin, cout, scr, dt, aux, part_f,
-                      part=None):
+                      part=None, fold=True):
         """One pass12_kernel instantiation over its tiles, or over its
-        tiles of ``part`` (CUDA tensors)."""
+        tiles of ``part`` (CUDA tensors).  ``fold=False``: the general
+        body reads the heat source from scratch plane SCR_SRCADD_E, which
+        heat_kernel wrote (the separate form, for the A/B; the staged body
+        always reads it)."""
         self._check_cuda(cin, cout, scr, dt, aux, part_f)
         tiles, n_tiles = self.plan.launch_grid(body, part)
+        consts = self.consts if fold else self.consts_unfolded
         self._launch("hf2d_pass12", f"pass12_kernel<{body}>", (
-            _BODY_CODE[body], ctypes.addressof(self.consts), _ptr(cin),
+            _BODY_CODE[body], ctypes.addressof(consts), _ptr(cin),
             _ptr(cout), _ptr(scr), _ptr(self.idn), _ptr(self.ctxw), _ptr(dt),
             _ptr(aux), tiles, n_tiles, _ptr(self.plan.flags), _ptr(part_f)))
 
@@ -531,9 +557,10 @@ class FusedStep:
             self.launch_gfc(body, cin, cout, scr, dt, aux, part_i)
 
     def heat(self, cout, scr, dt):
-        """heat_kernel: the conjugate wall-heat source SrcAdd[rhoE] of
-        iteration k into scratch plane SCR_SRCADD_E, from gfc's Tg in
-        ``cout`` and lam_eff in scratch plane SCR_LAM_EFF."""
+        """heat_kernel (the separate form of the heat stage): the
+        conjugate wall-heat source SrcAdd[rhoE] of iteration k into scratch
+        plane SCR_SRCADD_E, from gfc's Tg in ``cout`` and lam_eff in
+        scratch plane SCR_LAM_EFF."""
         if cout.device.type == "cpu":
             return self.heat_plain(cout, scr, dt)
         self.launch_heat(cout, scr, dt)
@@ -543,7 +570,9 @@ class FusedStep:
         blending factors of ``cin``; writes S and beta of ``cout`` and
         per-tile (RMS numerator, denominator, DD max) x 9 into ``part_f``.
         ``aux`` is the row of iteration k+1.  ``part`` (one of PARTS)
-        restricts the launches to that part of a strip plan's tiles."""
+        restricts the launches to that part of a strip plan's tiles.  With
+        the heat stage the general body adds SrcAdd[rhoE], computed from
+        gfc's Tg in ``cout`` and lam_eff in ``scr``."""
         if cin.device.type == "cpu":
             return self.pass12_plain(cin, cout, scr, dt, aux, part_f, part)
         for body in self._bodies(part):
@@ -578,26 +607,35 @@ class FusedStep:
         part_i[:, 1] = _tile_reduce(((dt > dt_field) & self.own).to(
             torch.int32), self.plan, "sum")
 
-    def heat_plain(self, cout, scr, dt):
-        """calc_heat_on_wall_sources on gfc's outputs: Tg of ``cout`` and
-        lam_eff as lam with lam_t = 0 (lam_eff + 0 is lam_eff)."""
+    def heat_source_plain(self, cout, scr, dt) -> torch.Tensor:
+        """(X, Y) SrcAdd[rhoE] of calc_heat_on_wall_sources on gfc's
+        outputs: Tg of ``cout`` and lam_eff as lam with lam_t = 0 (lam_eff
+        + 0 is lam_eff)."""
         p = self.params
         zero = torch.zeros_like(scr[SCR_LAM_EFF])
         state = expand(carry_views(cout, dt), p, self.zero_src,
                        lam_t=zero).replace(lam=scr[SCR_LAM_EFF])
         out = calc_heat_on_wall_sources(state, self.meta, p, ctx=self.ctx)
-        scr[SCR_SRCADD_E] = out.SrcAdd[fl.i2d_RhoE]
+        return out.SrcAdd[fl.i2d_RhoE]
 
-    def pass12_plain(self, cin, cout, scr, dt, aux, part_f, part=None):
-        """``part``: compute the whole grid, write the nodes and partials
+    def heat_plain(self, cout, scr, dt):
+        scr[SCR_SRCADD_E] = self.heat_source_plain(cout, scr, dt)
+
+    def pass12_plain(self, cin, cout, scr, dt, aux, part_f, part=None,
+                     heat_src=None):
+        """``heat_src``: the (X, Y) SrcAdd[rhoE] to add with the heat
+        stage (default: heat_source_plain of ``cout`` and ``scr``, the folded
+        form).  ``part``: compute the whole grid, write the nodes and partials
         of that part's tiles only (what its launches write)."""
         p = self.params
         src = torch.cat([self.zero_src[:fl.i2d_k], scr[27:29]])
         state = expand(carry_views(cin, dt), p, src).replace(
             S=scr[0:9], A=scr[9:18], B=scr[18:27])
         if self.has_heat:
+            heat = (self.heat_source_plain(cout, scr, dt)
+                    if heat_src is None else heat_src)
             state = state.replace(SrcAdd=torch.cat([
-                self.zero_src[:fl.i2d_RhoE], scr[SCR_SRCADD_E][None],
+                self.zero_src[:fl.i2d_RhoE], heat[None],
                 self.zero_src[fl.i2d_RhoE + 1:]]))
         S_c, beta_c, _, _, f = pass12(state, self.meta, p, self._aux(aux),
                                       return_fields=True, ctx=self.ctx)
@@ -681,7 +719,9 @@ def scan_dt(slim: SlimState, active, p: SolverParams, cfl_scen):
 
 class KernelChunk:
     """chunk(state, n_iters, start_iter, src_ext) -> (state', diags) on the
-    kernel path (make_pallas_chunk's interface at fuse_iters=1)."""
+    kernel path (make_pallas_chunk's interface at fuse_iters=1).  An
+    iteration launches ``step.iteration_launches()``: gfc, then pass12
+    (with the heat stage folded into its general body)."""
 
     def __init__(self, meta, params, chem, beta_tab, cfl_tab, turb_start,
                  spec_map=None, dispatch="lists"):
@@ -727,8 +767,6 @@ class KernelChunk:
         cb = torch.empty_like(ca)
         scr = torch.empty((N_SCRATCH,) + ca.shape[1:], dtype=dtype,
                           device=ca.device)
-        # general tiles outside the heat tiles read a zero heat source
-        scr[SCR_SRCADD_E].zero_()
         part_f = torch.zeros((self.plan.n_tiles, 27), dtype=dtype,
                              device=ca.device)
         part_i = torch.zeros((self.plan.n_tiles, 2), dtype=torch.int32,
@@ -741,8 +779,6 @@ class KernelChunk:
             # the kernels take dt through float32 too (see prologue)
             dt_k = dt.to(torch.float32).to(dtype)
             step.gfc(ca, cb, scr, dt_k, kaux[b], part_i)
-            if step.has_heat:
-                step.heat(cb, scr, dt_k)
             step.pass12(ca, cb, scr, dt_k, kaux[b + 1], part_f)
             r, m, u, o = combine(part_f, part_i, p)
             rms.append(r)

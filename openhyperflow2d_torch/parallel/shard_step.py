@@ -47,7 +47,7 @@ from ..core.state import GridMeta, SolverState
 from ..core.static_ctx import build_static_ctx, generic_interior_map
 from ..core.step import (StepAux, expand, gfc, has_heat_stage, lead,
                          make_aux, pass12, shrink, trail)
-from ..ops.fused_step import (N_CARRY, N_SCRATCH, SCR_SRCADD_E, FusedStep,
+from ..ops.fused_step import (N_CARRY, N_SCRATCH, FusedStep,
                               carry_views, halo_depth, heat_node_map,
                               local_dt, make_tile_plan, pack_carry, rms_of,
                               serial_dt, tile_totals)
@@ -412,7 +412,6 @@ class KernelShardChunk(_StripChunk):
         for step in self.steps:
             s = torch.empty((N_SCRATCH, self.Xext, Y), dtype=dtype,
                             device=dev)
-            s[SCR_SRCADD_E].zero_()
             scr.append(s)
             part_f.append(torch.zeros((step.plan.n_tiles, 27), dtype=dtype,
                                       device=dev))
@@ -429,8 +428,6 @@ class KernelShardChunk(_StripChunk):
             dt_k = dt.to(torch.float32).to(dtype)
             for s, step in enumerate(self.steps):
                 step.gfc(ca[s], cb[s], scr[s], dt_k, kaux[b], part_i[s])
-                if step.has_heat:
-                    step.heat(cb[s], scr[s], dt_k)
             for s, step in enumerate(self.steps):
                 step.pass12(ca[s], cb[s], scr[s], dt_k, kaux[b + 1],
                             part_f[s], "edge" if self.overlap else None)
