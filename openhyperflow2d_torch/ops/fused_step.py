@@ -1,19 +1,31 @@
 """The kernel path of the solver iteration.
 
-Counterpart of ``openhyperflow2d_tpu/ops/pallas_step.py`` at
-``fuse_iters=1``: ``make_kernel_chunk`` has the prologue ``pass12``, the
-per-iteration loop and the epilogue ``gfc`` of ``make_pallas_chunk``
-(pallas_step.py:1069-1143).  Each loop iteration
+Counterpart of ``openhyperflow2d_tpu/ops/pallas_step.py``:
+``make_kernel_chunk`` has the prologue ``pass12``, the loop of K-iteration
+blocks and the epilogue ``gfc`` of ``make_pallas_chunk(fuse_iters=K)``
+(pallas_step.py:1069-1143).  The chunk's n - 1 kernel iterations run as
+``divmod(n - 1, K)`` blocks of K, then a block of the remainder
+(pallas_step.py:1099-1113).  Each block (``make_block``,
+pallas_step.py:925-1030)
 
-1. freezes dt from the carried primitives (``scan_dt``, pallas_step.py:
-   859-871), one iteration behind the reference's dt, as on the TPU path;
-2. runs ``gfc_kernel``, then ``pass12_kernel`` (ops/csrc/fused_step.cu),
-   whose general body computes the conjugate wall heat source of its own
-   node on decks with non-adiabatic walls next to solids (the heat stage
-   folded; its separate form, ``heat_kernel`` between the two launches and
+1. freezes dt from the carried primitives at its entry (``scan_dt``,
+   pallas_step.py:859-871) for all its iterations: one iteration behind
+   the reference's dt at K = 1, up to K behind in a block of K, as on the
+   TPU path (the ``dt_overrun`` diag flags an iteration whose frozen dt
+   exceeds some node's fresh CFL limit);
+2. runs K iterations, each ``gfc_kernel`` then ``pass12_kernel``
+   (ops/csrc/fused_step.cu), ping-ponging the carry.  The TPU kernel loops
+   over the K iterations inside one invocation; here each iteration is its
+   own launch pair, so every tile reads its neighbours' values of the
+   iteration before (Jacobi), as in the TPU kernel.  pass12's general body
+   computes the conjugate wall heat source of its own node on decks with
+   non-adiabatic walls next to solids (the heat stage folded; its
+   separate form, ``heat_kernel`` between the two launches and
    ``launch_pass12(..., fold=False)``, is an A/B candidate no path runs);
-3. combines the per-tile partials into the RMS, DD_max, unstable and
-   dt_overrun diags (pallas_step.py:1014-1028).
+3. writes iteration i's per-tile partials into slot i of (K, tiles, ...)
+   buffers and combines them once into the block's K rows of the RMS,
+   DD_max, unstable and dt_overrun diags; its K ``dt_used`` are the frozen
+   dt (pallas_step.py:1014-1028).
 
 Two dispatch forms issue gfc and pass12 (``dispatch``):
 
@@ -29,10 +41,9 @@ Two dispatch forms issue gfc and pass12 (``dispatch``):
 
 Each tile runs the same body in both forms, so they give the same bits.
 
-The loop reads nothing back to the host: dt and the per-iteration scalars
-stay on the device, in the working dtype, and the kernels read them through
-pointers (``local_dt`` still copies the CFL constant to the device, which
-waits for the stream; PERF.md, Open questions).  They pass through float32
+The loop reads nothing back to the host and copies nothing to the device:
+dt and the per-iteration scalars stay on the device, in the working dtype,
+and the kernels read them through pointers.  They pass through float32
 even in a float64 run, as the TPU kernel's float32 scalar vector did
 (pallas_step.py:946-958), so the two packages agree in float64 too.
 
@@ -68,7 +79,7 @@ from ..core.state import (_CHEM_PROPS, _CHEM_SPECIES, ChemTables, GridMeta,
 from ..core.static_ctx import (_CTX_BOOL_PLANES, _CTX_BOOL_STACKS,
                                build_packed_ctx, build_static_ctx)
 from ..core.step import (SlimState, StepAux, expand, gfc, has_heat_stage,
-                         lead, make_aux, pass12, shrink, trail)
+                         make_aux, pass12, shrink)
 
 # CTA tile (rows i, columns j); csrc/hf2d_ctx_bits.cuh TILE_X / TILE_Y
 TILE = (8, 32)
@@ -104,8 +115,8 @@ DEFAULT_DISPATCH = "lists"
 _BODY_CODE = {"general": 0, "spec": 1, "dual": 2,
               "staged": 3}   # fused_step.cu BODY_*
 # tile subsets of a strip plan (make_tile_plan's ``halo``): "edge" holds
-# every tile with a row in the two halos or in the H own rows next to them,
-# "inner" the rest
+# every tile with a row in the two halos or in the halo's width of own rows
+# next to them, "inner" the rest
 PARTS = ("edge", "inner")
 
 
@@ -666,10 +677,12 @@ class FusedStep:
 
 
 def tile_totals(part_f: torch.Tensor, part_i: torch.Tensor):
-    """Per-tile partials summed over the tiles: (RMS numerator (9,),
-    denominator (9,), DD max (9,), (Tg<0, dt overrun) counts (2,))."""
-    return (part_f[:, 0:9].sum(0), part_f[:, 9:18].sum(0),
-            part_f[:, 18:27].amax(0), part_i.sum(0))
+    """Per-tile partials (..., tiles, 27) and (..., tiles, 2) summed over
+    the tiles: (RMS numerator (..., 9), denominator (..., 9), DD max
+    (..., 9), (Tg<0, dt overrun) counts (..., 2)); a leading dim holds a
+    block's iterations."""
+    return (part_f[..., 0:9].sum(-2), part_f[..., 9:18].sum(-2),
+            part_f[..., 18:27].amax(-2), part_i.sum(-2))
 
 
 def rms_of(nsum, dsum, p: SolverParams):
@@ -683,19 +696,46 @@ def rms_of(nsum, dsum, p: SolverParams):
 
 
 def combine(part_f: torch.Tensor, part_i: torch.Tensor, p: SolverParams):
-    """Per-tile partials -> (RMS (9,), DD_max (9,), unstable, dt_overrun)
-    of one iteration (pallas_step.py:1014-1028)."""
+    """Per-tile partials of a block's K iterations, (K, tiles, ...) ->
+    (RMS (K, 9), DD_max (K, 9), unstable (K,), dt_overrun (K,))
+    (pallas_step.py:1014-1028)."""
     nsum, dsum, ddm, counts = tile_totals(part_f, part_i)
-    return rms_of(nsum, dsum, p), ddm, counts[0] > 0, counts[1] > 0
+    return rms_of(nsum, dsum, p), ddm, counts[..., 0] > 0, counts[..., 1] > 0
+
+
+def fuse_blocks(n_iters: int, K: int) -> list:
+    """(first iteration, length) of the blocks of a chunk's n_iters - 1
+    kernel iterations, counted from the chunk's first: ``divmod(n_iters -
+    1, K)`` blocks of K, then one of the remainder (pallas_step.py:
+    1099-1113)."""
+    nb, rem = divmod(n_iters - 1, K)
+    return [(j * K, K) for j in range(nb)] + ([(nb * K, rem)] if rem else [])
+
+
+def chunk_diags(diag0: dict, blocks: list, unstable_last) -> dict:
+    """A chunk's diags: the prologue pass12's diag, each block's rows in
+    order (RMS, DD_max, unstable, dt_overrun as ``combine`` gives them,
+    then dt_used), and the epilogue gfc's unstable flag
+    (make_pallas_chunk's all_diag, pallas_step.py:1122-1142)."""
+    def rows(k, first=(), last=()):
+        return torch.cat([*first, *(b[k] for b in blocks), *last])
+
+    return {"RMS": rows(0, first=[diag0["RMS"][None]]),
+            "dt_used": rows(4, first=[diag0["dt_used"].reshape(1)]),
+            "DD_max": rows(1, first=[diag0["DD_max"][None]]),
+            "unstable": rows(2, last=[unstable_last.reshape(1)]),
+            # the epilogue gfc computes a fresh dt (no freeze)
+            "dt_overrun": rows(3, last=[torch.zeros(
+                1, dtype=torch.bool, device=unstable_last.device)])}
 
 
 def local_dt(slim: SlimState, active, p: SolverParams, cfl_scen):
     """min(1, the least CFL dt over the active nodes) of the carried
     primitives: the part of ``scan_dt`` before a reduction across
     shards."""
-    dtype = slim.U.dtype
-    cfl_min = torch.minimum(torch.tensor(p.CFL, dtype=dtype,
-                                         device=slim.U.device), cfl_scen)
+    # min(CFL, cfl_scen) in the working dtype, without a host-to-device
+    # copy of the constant
+    cfl_min = cfl_scen.clamp_max(p.CFL)
     k_new = _safe_div(slim.CP, slim.CP - slim.R, 2.0)
     aaa = torch.sqrt(torch.clamp_min(k_new * slim.R * slim.Tg, 0.0))
     dtn = cfl_min * torch.minimum(p.dx / (aaa + torch.abs(slim.U)),
@@ -719,15 +759,19 @@ def scan_dt(slim: SlimState, active, p: SolverParams, cfl_scen):
 
 class KernelChunk:
     """chunk(state, n_iters, start_iter, src_ext) -> (state', diags) on the
-    kernel path (make_pallas_chunk's interface at fuse_iters=1).  An
-    iteration launches ``step.iteration_launches()``: gfc, then pass12
+    kernel path (make_pallas_chunk's interface).  ``fuse_iters`` (K): the
+    kernel iterations run in blocks of K on one frozen dt (fuse_blocks).
+    An iteration launches ``step.iteration_launches()``: gfc, then pass12
     (with the heat stage folded into its general body)."""
 
     def __init__(self, meta, params, chem, beta_tab, cfl_tab, turb_start,
-                 spec_map=None, dispatch="lists"):
+                 spec_map=None, dispatch="lists", fuse_iters=1):
         p = params
         if p.has_ext_src:
             raise NotImplementedError("external sources are not ported")
+        if int(fuse_iters) < 1:
+            raise ValueError(f"fuse_iters must be >= 1, got {fuse_iters}")
+        self.K = int(fuse_iters)
         self.meta, self.params, self.chem = meta, p, chem
         self.beta_tab, self.cfl_tab, self.turb_start = (beta_tab, cfl_tab,
                                                         turb_start)
@@ -767,26 +811,24 @@ class KernelChunk:
         cb = torch.empty_like(ca)
         scr = torch.empty((N_SCRATCH,) + ca.shape[1:], dtype=dtype,
                           device=ca.device)
-        part_f = torch.zeros((self.plan.n_tiles, 27), dtype=dtype,
+        # slot i holds iteration i of a block
+        part_f = torch.zeros((self.K, self.plan.n_tiles, 27), dtype=dtype,
                              device=ca.device)
-        part_i = torch.zeros((self.plan.n_tiles, 2), dtype=torch.int32,
-                             device=ca.device)
+        part_i = torch.zeros((self.K, self.plan.n_tiles, 2),
+                             dtype=torch.int32, device=ca.device)
 
         dt = state.dt
-        rms, ddm, dts, uns, ovr = [], [], [], [], []
-        for b in range(n_iters - 1):
-            dt = scan_dt(carry_views(ca, dt), ctx.active, p, raw.cfl_scen[b])
+        blocks = []
+        for b0, kk in fuse_blocks(n_iters, self.K):
+            dt = scan_dt(carry_views(ca, dt), ctx.active, p, raw.cfl_scen[b0])
             # the kernels take dt through float32 too (see prologue)
             dt_k = dt.to(torch.float32).to(dtype)
-            step.gfc(ca, cb, scr, dt_k, kaux[b], part_i)
-            step.pass12(ca, cb, scr, dt_k, kaux[b + 1], part_f)
-            r, m, u, o = combine(part_f, part_i, p)
-            rms.append(r)
-            ddm.append(m)
-            uns.append(u)
-            ovr.append(o)
-            dts.append(dt)
-            ca, cb = cb, ca
+            for i, b in enumerate(range(b0, b0 + kk)):
+                step.gfc(ca, cb, scr, dt_k, kaux[b], part_i[i])
+                step.pass12(ca, cb, scr, dt_k, kaux[b + 1], part_f[i])
+                ca, cb = cb, ca
+            blocks.append((*combine(part_f[:kk], part_i[:kk], p),
+                           dt.expand(kk)))
 
         # epilogue: the final iteration's gfc on the whole grid
         full = expand(carry_views(ca, dt), p, step.zero_src)
@@ -796,23 +838,16 @@ class KernelChunk:
         # beta is the only carry view that passes through gfc unchanged
         out = out.replace(dt=dt_new, y_plus=state.y_plus,
                           beta=out.beta.clone())
-        diags = {
-            "RMS": lead(diag0["RMS"], rms),
-            "dt_used": lead(diag0["dt_used"], dts),
-            "DD_max": lead(diag0["DD_max"], ddm),
-            "unstable": trail(uns, unstable_last),
-            # the epilogue gfc computes a fresh dt (no freeze)
-            "dt_overrun": trail(ovr, torch.zeros((), dtype=torch.bool,
-                                                 device=ca.device)),
-        }
-        return out, diags
+        return out, chunk_diags(diag0, blocks, unstable_last)
 
 
 def make_kernel_chunk(meta: GridMeta, params: SolverParams, chem: ChemTables,
                       beta_tab, cfl_tab, turb_start, spec_map=None,
-                      dispatch: str = "lists") -> KernelChunk:
-    """The analog of ``make_pallas_chunk(fuse_iters=1)``; ``spec_map`` is
+                      dispatch: str = "lists",
+                      fuse_iters: int = 1) -> KernelChunk:
+    """The analog of ``make_pallas_chunk(fuse_iters=K)``; ``spec_map`` is
     the host generic-interior map (None: every tile runs the general
-    body); ``dispatch`` one of DISPATCH_FORMS."""
+    body); ``dispatch`` one of DISPATCH_FORMS; ``fuse_iters`` the K of the
+    blocks on one frozen dt."""
     return KernelChunk(meta, params, chem, beta_tab, cfl_tab, turb_start,
-                       spec_map, dispatch)
+                       spec_map, dispatch, fuse_iters)

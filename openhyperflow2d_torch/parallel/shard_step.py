@@ -3,23 +3,30 @@
 Counterpart of ``openhyperflow2d_tpu/parallel/shard_step.py``: the grid is
 cut into ``comm.n`` strips along X, the analog of the reference's MPI
 strips with their halo Send/Recv (deeps2d_core.cpp:1336-1399).  Each strip
-runs the solver stages on its own columns plus H = ``halo_depth`` halo
-columns on each side, which it receives from its neighbours every
-iteration, and the dt minimum and the diag sums go across strips through
-the communicator (parallel/comm).
+runs the solver stages on its own columns plus ``halo`` columns on each
+side, which it receives from its neighbours, and the dt minimum and the
+diag sums go across strips through the communicator (parallel/comm).
+The halo is H K columns: H = ``halo_depth`` (the columns one iteration
+reads) times the iterations K between two exchanges.
 
 * ``make_shard_chunk`` (shard_step.py:61-253): the eager strip path with
   the reference-exact dt pairing (the dt minimum mid-iteration), and
-  ``halo_ablate``, BASELINE.md's halo-overhead method.
-* ``make_kernel_shard_chunk`` (``make_pallas_shard_chunk`` at
-  ``fuse_iters=1``, shard_step.py:256-381): every strip runs the kernel
-  path of ops/fused_step (``FusedStep``) over its extended strip, with the
-  partials windowed to its own columns.  ``overlap=True`` is the
+  ``halo_ablate``, BASELINE.md's halo-overhead method; K = 1, as JAX's.
+* ``make_kernel_shard_chunk`` (``make_pallas_shard_chunk(fuse_iters=K)``,
+  shard_step.py:256-381): every strip runs the kernel path of
+  ops/fused_step (``FusedStep``) over its extended strip, with the
+  partials windowed to its own columns, in blocks of K iterations on one
+  frozen dt: at a block's entry one dt minimum across strips, then K
+  iterations over the extended strips (after iteration i the outer H (i +
+  1) columns of each side hold stale values, which never reach the own
+  columns), then one exchange of HK columns and one sum and one max
+  across strips of the block's K rows.  ``overlap=True`` is the
   reference's Isend/Irecv -> work -> Wait (deeps2d_core.cpp:1336-1409) in
-  the GPU's form: pass12 runs first over the tiles next to the halos,
-  their exchange is posted, pass12 runs over the other tiles, and the next
-  gfc waits for the exchange.  Each tile runs the same body in both forms,
-  so they give the same bits.
+  the GPU's form (``sharded_inner_overlap``, shard_step.py:383-568): the
+  block's last pass12 runs first over the tiles next to the halos, their
+  exchange is posted, pass12 runs over the other tiles, and the next
+  block waits for the exchange.  Each tile runs the same body in both
+  forms, so they give the same bits.
 
 Semantics kept from the JAX package: X is padded with zero columns up to a
 multiple of n (inactive nodes); the meta is extended once, with CT, TCT
@@ -45,12 +52,12 @@ import torch.nn.functional as F
 from ..core.physics import fill_node
 from ..core.state import GridMeta, SolverState
 from ..core.static_ctx import build_static_ctx, generic_interior_map
-from ..core.step import (StepAux, expand, gfc, has_heat_stage, lead,
-                         make_aux, pass12, shrink, trail)
-from ..ops.fused_step import (N_CARRY, N_SCRATCH, FusedStep,
-                              carry_views, halo_depth, heat_node_map,
-                              local_dt, make_tile_plan, pack_carry, rms_of,
-                              serial_dt, tile_totals)
+from ..core.step import (expand, gfc, has_heat_stage, lead, make_aux,
+                         pass12, shrink, trail)
+from ..ops.fused_step import (N_SCRATCH, FusedStep, carry_views,
+                              chunk_diags, fuse_blocks, halo_depth,
+                              heat_node_map, local_dt, make_tile_plan,
+                              pack_carry, rms_of, serial_dt, tile_totals)
 
 META_FIELDS = [f.name for f in dataclasses.fields(GridMeta)
                if f.name not in ("dx_map", "dy_map")]
@@ -69,27 +76,34 @@ class StripState:
 
 class _StripChunk:
     """What both strip chunks share: the layout, the extended meta and
-    static ctx of each strip, the prologue and the epilogue."""
+    static ctx of each strip, the prologue and the epilogue.  ``H`` is
+    the halo_depth, ``K`` the iterations between two exchanges, ``halo``
+    = H K the halo's columns on each side."""
 
     def __init__(self, meta: GridMeta, params, chem, beta_tab, cfl_tab,
-                 turb_start, comm):
+                 turb_start, comm, fuse_iters: int = 1):
         p = params
         if not p.uniform_mesh:
             raise NotImplementedError("the strip path supports uniform "
                                       "meshes only")
         if p.has_ext_src:
             raise NotImplementedError("external sources are not ported")
+        if int(fuse_iters) < 1:
+            raise ValueError(f"fuse_iters must be >= 1, got {fuse_iters}")
         self.params, self.chem, self.comm = p, chem, comm
         self.beta_tab, self.cfl_tab, self.turb_start = (beta_tab, cfl_tab,
                                                         turb_start)
         n, X = comm.n, p.MaxX
-        self.H = H = halo_depth(p)
+        self.H = halo_depth(p)
+        self.K = int(fuse_iters)
+        self.halo = halo = self.H * self.K
         self.px = (-X) % n
         self.X_loc = (X + self.px) // n
-        if self.X_loc < H:
+        if self.X_loc < halo:
             raise ValueError(f"{n} strips of {X} columns leave {self.X_loc} "
-                             f"a strip, fewer than the halo of {H}")
-        self.Xext = self.X_loc + 2 * H
+                             f"a strip, fewer than the halo of {halo} "
+                             f"({self.H} columns x {self.K} iterations)")
+        self.Xext = self.X_loc + 2 * halo
         self.p_loc = dataclasses.replace(p, MaxX=self.Xext)
         dev = comm.device
         self.meta_ext = [self._extend_meta(meta, k) for k in comm.shards]
@@ -118,7 +132,7 @@ class _StripChunk:
                      ablate: bool = False) -> GridMeta:
         """Shard k's meta over its extended strip; ``ablate``: its own far
         columns in the halos (see ``extend``)."""
-        H, n, X_loc = self.H, self.comm.n, self.X_loc
+        H, n, X_loc = self.halo, self.comm.n, self.X_loc
         idx = (torch.cat([self._cols(k, X_loc - H, X_loc),
                           self._cols(k, 0, X_loc), self._cols(k, 0, H)])
                if ablate else self._cols(k, -H, X_loc + H))
@@ -135,7 +149,7 @@ class _StripChunk:
         return GridMeta(**kw)
 
     def crop(self, a):
-        return a[..., self.H:self.H + self.X_loc, :]
+        return a[..., self.halo:self.halo + self.X_loc, :]
 
     def scatter(self, state: SolverState) -> StripState:
         """The strips of a whole-grid state (on any device), on the
@@ -172,11 +186,11 @@ class _StripChunk:
     # halos and reductions
     # ------------------------------------------------------------------
     def extend(self, own, ablate: bool = False):
-        """Each strip's (..., X_loc, Y) block with H halo columns from its
+        """Each strip's (..., X_loc, Y) block with ``halo`` columns from its
         neighbours on each side (``ext``, shard_step.py:88-99).  ``ablate``:
         each strip's own far columns instead, a same-shaped local slice
         (results wrong at the seams, timing valid; shard_step.py:64-68)."""
-        H = self.H
+        H = self.halo
         left = [a[..., :H, :] for a in own]
         right = [a[..., -H:, :] for a in own]
         if ablate:
@@ -189,7 +203,7 @@ class _StripChunk:
     def fill_halos(self, bufs, async_op: bool = False):
         """Exchange into the halo columns of extended (..., Xext, Y)
         buffers, in place."""
-        H, X_loc = self.H, self.X_loc
+        H, X_loc = self.halo, self.X_loc
         return self.comm.exchange(
             [b[..., H:2 * H, :] for b in bufs],
             [b[..., X_loc:X_loc + H, :] for b in bufs],
@@ -248,7 +262,7 @@ class _StripChunk:
             kw = {}
             for f in dataclasses.fields(SolverState):
                 a = getattr(st, f.name)
-                kw[f.name] = (F.pad(a, (0, 0, self.H, self.H))
+                kw[f.name] = (F.pad(a, (0, 0, self.halo, self.halo))
                               if a.dim() >= 2 else a)
             kw.update(S=ext[0:9], A=ext[9:18], B=ext[18:27])
             S_c, beta_c, _, _, f = pass12(SolverState(**kw), m, self.p_loc,
@@ -345,17 +359,25 @@ class ShardChunk(_StripChunk):
 
 class KernelShardChunk(_StripChunk):
     """chunk(state, n_iters, start_iter, src_ext) -> (state', diags) of
-    the kernel strip path (make_pallas_shard_chunk at fuse_iters=1).
+    the kernel strip path (make_pallas_shard_chunk(fuse_iters=K)).
     ``steps``: one FusedStep per strip held here, each with its own tile
     plan over the extended strip (its spec map from the strip's extended
-    meta, global edges zeroed) and the window of its own columns."""
+    meta, global edges zeroed), the window of its own columns, and its
+    edge and inner parts at the halo's width."""
 
     def __init__(self, *args, dispatch: str = "lists",
-                 overlap: bool = False):
-        super().__init__(*args)
+                 overlap: bool = False, fuse_iters: int = 1):
+        super().__init__(*args, fuse_iters=fuse_iters)
         if overlap and dispatch != "lists":
             raise ValueError("overlap=True splits each body's tile list "
                              "and needs dispatch=\"lists\"")
+        if overlap and self.X_loc < 2 * self.halo:
+            # shard_step.py:304-309: the two edges a block exchanges must
+            # not overlap
+            raise ValueError(f"overlap=True needs strips of at least 2 x "
+                             f"the halo of {self.halo} columns, got "
+                             f"{self.X_loc}; use fewer strips or a smaller "
+                             f"fuse_iters")
         self.overlap = overlap
         p, pl = self.params, self.p_loc
         self.steps = []
@@ -364,7 +386,7 @@ class KernelShardChunk(_StripChunk):
                                               for f in ZERO_EDGE), pl)
             heat_map = heat_node_map(ctx) if has_heat_stage(p) else None
             plan = make_tile_plan(self.Xext, p.MaxY, spec_map,
-                                  self.comm.device, heat_map, halo=self.H)
+                                  self.comm.device, heat_map, halo=self.halo)
             self.steps.append(FusedStep(m, pl, self.chem, plan, dispatch,
                                         ctx))
 
@@ -391,78 +413,79 @@ class KernelShardChunk(_StripChunk):
         raw = self.aux_at(torch.arange(start_iter, start_iter + n_iters))
         kaux = torch.stack([raw.beta_scen, raw.cfl_scen,
                             raw.is_mu_t_iter.to(dtype)], 1)
-        ca = [F.pad(c, (0, 0, self.H, self.H)) for c in own]
+        ca = [F.pad(c, (0, 0, self.halo, self.halo)) for c in own]
         self.fill_halos(ca)
         return ca, diag0, raw, kaux.to(torch.float32).to(dtype)
 
     def frozen_dt(self, ca, dt_prev, cfl_scen):
-        """The iteration's dt from the extended carries: each strip's
-        minimum, then the minimum across strips (scan_dt's counterpart)."""
+        """A block's dt from the extended carries, their halos filled: each
+        strip's minimum, then the minimum across strips (scan_dt's
+        counterpart)."""
         return self.global_dt([local_dt(carry_views(c, dt_prev), ctx.active,
                                         self.p_loc, cfl_scen)
                                for c, ctx in zip(ca, self.ctx)], dt_prev)
+
+    def block_rows(self, part_f, part_i, kk: int, dt):
+        """A block's diag rows from every strip's (K, tiles, ...) partials:
+        one sum and one max across strips of its kk rows."""
+        p = self.params
+        totals = [tile_totals(f[:kk], i[:kk]) for f, i in zip(part_f,
+                                                              part_i)]
+        sums = self.comm.all_sum([torch.cat(t[:2], -1) for t in totals])[0]
+        counts = self.comm.all_sum([t[3] for t in totals])[0]
+        ddm = self.comm.all_max([t[2] for t in totals])[0]
+        return (rms_of(sums[..., :9], sums[..., 9:], p), ddm,
+                counts[..., 0] > 0, counts[..., 1] > 0, dt.expand(kk))
 
     def __call__(self, state: StripState, n_iters: int, start_iter: int,
                  src_ext=None):
         p, dtype = self.params, self.params.torch_dtype
         ca, diag0, raw, kaux = self.start(state, n_iters, start_iter)
-        dev, Y = self.comm.device, p.MaxY
+        dev, Y, K = self.comm.device, p.MaxY, self.K
         cb = [torch.empty_like(c) for c in ca]
         scr, part_f, part_i = [], [], []
         for step in self.steps:
-            s = torch.empty((N_SCRATCH, self.Xext, Y), dtype=dtype,
-                            device=dev)
-            scr.append(s)
-            part_f.append(torch.zeros((step.plan.n_tiles, 27), dtype=dtype,
-                                      device=dev))
-            part_i.append(torch.zeros((step.plan.n_tiles, 2),
+            scr.append(torch.empty((N_SCRATCH, self.Xext, Y), dtype=dtype,
+                                   device=dev))
+            # slot i holds iteration i of a block
+            part_f.append(torch.zeros((K, step.plan.n_tiles, 27),
+                                      dtype=dtype, device=dev))
+            part_i.append(torch.zeros((K, step.plan.n_tiles, 2),
                                       dtype=torch.int32, device=dev))
 
         pending = None
         dt = diag0["dt_used"]
-        rms, ddm, dts, uns, ovr = [], [], [], [], []
-        for b in range(n_iters - 1):
+        blocks = []
+        for b0, kk in fuse_blocks(n_iters, K):
             if pending is not None:
                 pending.wait()
-            dt = self.frozen_dt(ca, dt, raw.cfl_scen[b])
+            dt = self.frozen_dt(ca, dt, raw.cfl_scen[b0])
             dt_k = dt.to(torch.float32).to(dtype)
-            for s, step in enumerate(self.steps):
-                step.gfc(ca[s], cb[s], scr[s], dt_k, kaux[b], part_i[s])
-            for s, step in enumerate(self.steps):
-                step.pass12(ca[s], cb[s], scr[s], dt_k, kaux[b + 1],
-                            part_f[s], "edge" if self.overlap else None)
-            if self.overlap:
-                # Isend/Irecv -> work -> Wait: the fresh edge columns travel
-                # while pass12 runs over the inner tiles
-                pending = self.fill_halos(cb, async_op=True)
+            for i, b in enumerate(range(b0, b0 + kk)):
+                split = self.overlap and i == kk - 1
+                for s, step in enumerate(self.steps):
+                    step.gfc(ca[s], cb[s], scr[s], dt_k, kaux[b],
+                             part_i[s][i])
                 for s, step in enumerate(self.steps):
                     step.pass12(ca[s], cb[s], scr[s], dt_k, kaux[b + 1],
-                                part_f[s], "inner")
-            totals = [tile_totals(f, i) for f, i in zip(part_f, part_i)]
-            sums = self.comm.all_sum([torch.cat(t[:2]) for t in totals])[0]
-            counts = self.comm.all_sum([t[3] for t in totals])[0]
-            rms.append(rms_of(sums[:9], sums[9:], p))
-            ddm.append(self.comm.all_max([t[2] for t in totals])[0])
-            uns.append(counts[0] > 0)
-            ovr.append(counts[1] > 0)
-            dts.append(dt)
-            ca, cb = cb, ca
+                                part_f[s][i], "edge" if split else None)
+                if split:
+                    # Isend/Irecv -> work -> Wait: the fresh edge columns
+                    # travel while pass12 runs over the inner tiles
+                    pending = self.fill_halos(cb, async_op=True)
+                    for s, step in enumerate(self.steps):
+                        step.pass12(ca[s], cb[s], scr[s], dt_k, kaux[b + 1],
+                                    part_f[s][i], "inner")
+                ca, cb = cb, ca
             if not self.overlap:
                 self.fill_halos(ca)
+            blocks.append(self.block_rows(part_f, part_i, kk, dt))
         if pending is not None:
             pending.wait()
 
         out, _, unstable_last = self.epilogue(ca, dt, state,
                                               start_iter + n_iters - 1)
-        return out, {
-            "RMS": lead(diag0["RMS"], rms),
-            "dt_used": lead(diag0["dt_used"], dts),
-            "DD_max": lead(diag0["DD_max"], ddm),
-            "unstable": trail(uns, unstable_last),
-            # the epilogue gfc computes a fresh dt (no freeze)
-            "dt_overrun": trail(ovr, torch.zeros((), dtype=torch.bool,
-                                                 device=dev)),
-        }
+        return out, chunk_diags(diag0, blocks, unstable_last)
 
 
 def make_shard_chunk(meta: GridMeta, params, chem, beta_tab, cfl_tab,
@@ -476,9 +499,11 @@ def make_shard_chunk(meta: GridMeta, params, chem, beta_tab, cfl_tab,
 
 def make_kernel_shard_chunk(meta: GridMeta, params, chem, beta_tab,
                             cfl_tab, turb_start, comm,
-                            dispatch: str = "lists", overlap: bool = False):
-    """The kernel strip path (make_pallas_shard_chunk at fuse_iters=1,
-    shard_step.py:256-381, and its overlapped form, :383-568)."""
+                            dispatch: str = "lists", overlap: bool = False,
+                            fuse_iters: int = 1):
+    """The kernel strip path (make_pallas_shard_chunk(fuse_iters=K),
+    shard_step.py:256-381, and its overlapped form, :383-568), with a halo
+    of halo_depth x K columns exchanged once a block of K iterations."""
     return KernelShardChunk(meta, params, chem, beta_tab, cfl_tab,
                             turb_start, comm, dispatch=dispatch,
-                            overlap=overlap)
+                            overlap=overlap, fuse_iters=fuse_iters)

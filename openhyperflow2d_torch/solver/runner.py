@@ -136,10 +136,20 @@ class Solver:
     parallel/shard_step on ``comm.device``; ``state`` is a StripState and
     ``host_state()`` gathers it on the primary process.  ``overlap``: the
     kernel strip path's Isend/Irecv -> work -> Wait form.
+    ``fuse_iters`` (K; JAX's ``pallas_fuse``): the kernel path runs its
+    iterations in blocks of K on one dt, frozen at the block's entry
+    (make_pallas_chunk's fuse_iters), so dt lags up to K iterations behind
+    the primitives and the ``dt_overrun`` diag flags an iteration whose
+    frozen dt exceeds some node's fresh CFL limit; on strips the halo is
+    K times as wide and is exchanged once a block.  The eager path has no
+    such blocks: there ``fuse_iters > 1`` raises a ValueError, where
+    JAX's Solver ignores ``pallas_fuse`` off its Pallas path (the dt
+    schedule would silently differ from the one asked for).
     """
 
     def __init__(self, case: Case, device=None, use_kernels: bool = None,
-                 dispatch: str = None, comm=None, overlap: bool = False):
+                 dispatch: str = None, comm=None, overlap: bool = False,
+                 fuse_iters: int = 1):
         p = case.params
         check_supported(p)
         if comm is not None:
@@ -161,7 +171,15 @@ class Solver:
                 self.device.type, p.dtype, p.uniform_mesh)
         else:
             self.path_reason = "chosen by the caller"
+        if use_kernels:
+            self.path_reason += (f"; fuse_iters={fuse_iters} (dt frozen "
+                                 f"over blocks of {fuse_iters})")
+        elif fuse_iters != 1:
+            raise ValueError(f"fuse_iters={fuse_iters}: the eager path runs "
+                             f"one dt an iteration; blocks of K iterations "
+                             f"on one frozen dt need the kernel path")
         self.use_kernels = use_kernels
+        self.fuse_iters = fuse_iters
         self.comm = comm
         self.case = case
         self.params = p
@@ -203,7 +221,8 @@ class Solver:
             self._chunk_fn = make_kernel_chunk(
                 self.meta, p, self.chem, self.beta_tab, self.cfl_tab,
                 p.TurbStartIter, spec_map=spec_map,
-                dispatch=dispatch or DEFAULT_DISPATCH)
+                dispatch=dispatch or DEFAULT_DISPATCH,
+                fuse_iters=self.fuse_iters)
             self.fused = self._chunk_fn.step
         else:
             probe_idx = tuple(self._probe_index(mp.x, mp.y)
@@ -225,7 +244,7 @@ class Solver:
         if use_kernels:
             self._chunk_fn = make_kernel_shard_chunk(
                 *args, dispatch=dispatch or DEFAULT_DISPATCH,
-                overlap=overlap)
+                overlap=overlap, fuse_iters=self.fuse_iters)
         else:
             self._chunk_fn = make_shard_chunk(*args)
         self.meta = self.fused = self._src_ext = None
