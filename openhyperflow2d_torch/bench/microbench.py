@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import sys
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -36,10 +37,19 @@ SHIFTS = {"concat-x": (0, False), "roll-x": (0, True),
 # vpu_div_peak.py OPS, in microbench.cu's OP_* order
 DIV_OPS = ("mul-add (baseline)", "div", "reciprocal exact",
            "reciprocal approx", "sqrt", "rsqrt")
-# a CTA of shift_chain holds this many elements, whole along the shift axis
-# (microbench.cu ShiftTile)
-SHIFT_TILE_ELEMS = (8192, 2048)
-THREADS = 256
+# shift_chain (microbench.cu ShiftTile): a CTA's output tile, rows x
+# columns, by axis, and each of its SHIFT_THREADS threads sums SHIFT_EPT
+# outputs; along X it stages the N_SHIFT rows behind the tile in shared
+# memory, along Y lanes 16-31 load the N_SHIFT columns behind the warp's
+SHIFT_TILE = ((16, 32), (4, 128))
+SHIFT_EPT = 4
+SHIFT_THREADS = 128
+# div_chain (microbench.cu): each thread runs DIV_EPT elements' chains (a
+# group), DIV_THREADS threads a CTA, DIV_CTAS_PER_SM CTAs an SM
+DIV_EPT = 4
+DIV_THREADS = 256
+DIV_CTAS_PER_SM = 1
+DIV_UNROLL = 8      # chain steps an iteration of the kernel's loop
 
 LAUNCHES: dict = {}
 
@@ -114,6 +124,61 @@ def div_chain_plain(x: torch.Tensor, op: str) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# launch plans (what microbench.cu's launchers compute)
+# ---------------------------------------------------------------------------
+def shift_grid(shape, axis: int) -> tuple:
+    """shift_chain's grid (CTAs along Y, CTAs along X) for an (X, Y)
+    block: whole tiles of SHIFT_TILE[axis], else ValueError."""
+    X, Y = shape
+    tr, tc = SHIFT_TILE[axis]
+    if X <= 0 or Y <= 0 or X % tr or Y % tc or X // tr > 65535:
+        raise ValueError(f"shift_chain along axis {axis} takes whole "
+                         f"{tr} x {tc} tiles (at most 65535 along X); got "
+                         f"a {X} x {Y} block")
+    return Y // tc, X // tr
+
+
+@dataclass(frozen=True)
+class DivPlan:
+    """div_chain's launch over n elements: ``groups`` groups of DIV_EPT
+    (the last holds ``tail`` elements when n is not a multiple), ``grid``
+    CTAs of DIV_THREADS; with groups = base * grid + rem, CTA b takes base
+    groups, one more if b < rem, from b * base + min(b, rem), and its
+    thread t every DIV_THREADS-th of them from t."""
+    n: int
+    grid: int
+    groups: int
+    tail: int
+
+    def group_range(self, b: int) -> range:
+        base, rem = divmod(self.groups, self.grid)
+        start = b * base + min(b, rem)
+        return range(start, start + base + (b < rem))
+
+    def elements(self):
+        """(CTA, thread, element) of every element the kernel loads and
+        stores, in the kernel's index arithmetic."""
+        for b in range(self.grid):
+            g = self.group_range(b)
+            for t in range(DIV_THREADS):
+                for grp in range(g.start + t, g.stop, DIV_THREADS):
+                    for e in range(DIV_EPT):
+                        if grp * DIV_EPT + e < self.n:
+                            yield b, t, grp * DIV_EPT + e
+
+
+def div_plan(n: int, sms: int) -> DivPlan:
+    """The plan of div_chain's launcher for n elements on a card of ``sms``
+    SMs (cudaDevAttrMultiProcessorCount)."""
+    if not 0 < n <= 2**31 - 1 - DIV_EPT:
+        raise ValueError(f"div_chain takes 1 to 2^31 - {1 + DIV_EPT} "
+                         f"elements; got {n}")
+    groups = -(-n // DIV_EPT)
+    return DivPlan(n, min(sms * DIV_CTAS_PER_SM, groups), groups,
+                   n % DIV_EPT)
+
+
+# ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 def _check(x: torch.Tensor) -> None:
@@ -121,6 +186,10 @@ def _check(x: torch.Tensor) -> None:
         raise NotImplementedError(f"the chains are float32; got {x.dtype}")
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError("the chains take a contiguous (X, Y) block")
+
+
+def sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _launch(entry: str, name: str, args) -> None:
@@ -143,16 +212,10 @@ def shift_chain(x: torch.Tensor, axis: int, wrap: bool) -> torch.Tensor:
         raise ValueError(f"shift_chain runs on CUDA or CPU tensors, not "
                          f"{x.device}")
     _check(x)
-    X, Y = x.shape
-    L, W = (X, Y) if axis == 0 else (Y, X)
-    tile = SHIFT_TILE_ELEMS[axis]
-    if tile % L or W % (tile // L):
-        raise ValueError(f"shift_chain along axis {axis}: the axis length "
-                         f"{L} must divide {tile} and the other axis {W} "
-                         f"must be a multiple of {tile // max(L, 1)}")
+    shift_grid(x.shape, axis)
     out = torch.empty_like(x)
     _launch("hf2d_shift_chain", shift_name(axis, wrap),
-            (axis, int(wrap), x.data_ptr(), out.data_ptr(), X, Y))
+            (axis, int(wrap), x.data_ptr(), out.data_ptr(), *x.shape))
     return out
 
 
@@ -167,6 +230,7 @@ def div_chain(x: torch.Tensor, op: str) -> torch.Tensor:
         raise ValueError(f"div_chain runs on CUDA or CPU tensors, not "
                          f"{x.device}")
     _check(x)
+    div_plan(x.numel(), sm_count(x.device))
     out = torch.empty_like(x)
     _launch("hf2d_div_chain", div_name(op),
             (DIV_OPS.index(op), x.data_ptr(), out.data_ptr(), x.numel()))

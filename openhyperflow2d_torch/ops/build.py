@@ -6,6 +6,10 @@ with a plain C interface and loads it with ctypes.  The library goes
 to ``build/hf2d_torch/<hash of the sources>/`` under the repository root,
 so an edited source rebuilds and an unchanged one is reused.  A failed build
 raises with nvcc's output; nothing falls back.
+
+``load_library(csrc)`` builds and loads the same entries from another
+checkout's sources, and ``kernels_from(lib)`` makes every wrapper launch
+them for the length of a block: an A/B of two builds in one process.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -79,10 +84,10 @@ def _source_hash(sources) -> str:
     return h.hexdigest()[:16]
 
 
-def build() -> tuple[Path, float, str]:
-    """Compile the kernels if needed; returns (library path, seconds spent
-    compiling, ptxas log)."""
-    sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def build(csrc: Path = CSRC) -> tuple[Path, float, str]:
+    """Compile the kernels of ``csrc`` if needed; returns (library path,
+    seconds spent compiling, ptxas log)."""
+    sources = sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
     out_dir = BUILD_ROOT / _source_hash(sources)
     lib_path = out_dir / LIB_NAME
     log_path = out_dir / "ptxas.log"
@@ -100,7 +105,7 @@ def build() -> tuple[Path, float, str]:
         if src.suffix != ".cu":
             continue
         obj = obj_dir / f"{src.stem}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(csrc), "-c", "-o", str(obj),
                str(src)]
         procs.append((cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -135,18 +140,37 @@ def build() -> tuple[Path, float, str]:
 _LOADED: KernelLib | None = None
 
 
+def load_library(csrc: Path = CSRC) -> KernelLib:
+    """Build (if needed) and load the kernel library of ``csrc``."""
+    path, secs, log = build(Path(csrc))
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.hf2d_error_string.argtypes = [ctypes.c_int]
+    lib.hf2d_error_string.restype = ctypes.c_char_p
+    return KernelLib(lib, path, secs, log)
+
+
 def load_kernels() -> KernelLib:
     """Build (at first use) and load the kernel library, once per
     process."""
     global _LOADED
     if _LOADED is None:
-        path, secs, log = build()
-        lib = ctypes.CDLL(str(path))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.hf2d_error_string.argtypes = [ctypes.c_int]
-        lib.hf2d_error_string.restype = ctypes.c_char_p
-        _LOADED = KernelLib(lib, path, secs, log)
+        _LOADED = load_library()
     return _LOADED
+
+
+@contextmanager
+def kernels_from(lib: KernelLib):
+    """Within the block, load_kernels() returns ``lib`` (another build of
+    the same entries, load_library), so every wrapper launches its
+    kernels."""
+    global _LOADED
+    saved = load_kernels()
+    _LOADED = lib
+    try:
+        yield lib
+    finally:
+        _LOADED = saved
