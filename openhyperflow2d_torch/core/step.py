@@ -205,9 +205,6 @@ def gfc(state: SolverState, meta: GridMeta, params: SolverParams,
     heat stage as a kernel of its own).
     """
     p = params
-    if p.sm != fl.SM_NS:
-        raise NotImplementedError("Euler decks (ProblemType=0) are not "
-                                  "ported")
     if ctx is None:
         ctx = build_static_ctx(meta, p)
     dtype = state.S.dtype
@@ -218,87 +215,99 @@ def gfc(state: SolverState, meta: GridMeta, params: SolverParams,
     st = state
 
     # ---------------- gradients (1169-1237) --------------------------------
-    dx1nn = ctx.dx1nn
-    dy1mm = ctx.dy1mm
-    Sc_L, Sc_R, Sc_U, Sc_D = neighbors(S_committed, idXl, idXr, idYu, idYd)
-    rho_c = S_committed[fl.i2d_Rho]
-    rho_cs = torch.where(rho_c != 0, rho_c, 1)
-    if p.fast_math:
-        r_rho_c = 1.0 / rho_cs
+    if p.sm == fl.SM_NS:
+        dx1nn = ctx.dx1nn
+        dy1mm = ctx.dy1mm
+        Sc_L, Sc_R, Sc_U, Sc_D = neighbors(S_committed, idXl, idXr, idYu,
+                                           idYd)
+        rho_c = S_committed[fl.i2d_Rho]
+        rho_cs = torch.where(rho_c != 0, rho_c, 1)
+        if p.fast_math:
+            r_rho_c = 1.0 / rho_cs
 
-        def div_rho_c(a):
-            return a * r_rho_c
+            def div_rho_c(a):
+                return a * r_rho_c
+        else:
+            def div_rho_c(a):
+                return a / rho_cs
+
+        dydx_ok = ctx.dydx_ok
+        dydy_ok = ctx.dydy_ok
+        droYdx_l = []
+        droYdy_l = []
+        air_R = Sc_R[fl.i2d_Rho]
+        air_L = Sc_L[fl.i2d_Rho]
+        air_U = Sc_U[fl.i2d_Rho]
+        air_D = Sc_D[fl.i2d_Rho]
+        for k in range(4, 7):
+            gx = (Sc_R[k] - Sc_L[k]) * dx1nn
+            gy = (Sc_U[k] - Sc_D[k]) * dy1mm
+            droYdx_l.append(wsel(ctx.g_dydx, gx, st.droYdx[k - 4]))
+            droYdy_l.append(wsel(ctx.g_dydy, gy, st.droYdy[k - 4]))
+            air_R = air_R - wsel(dydx_ok, Sc_R[k], 0.0)
+            air_L = air_L - wsel(dydx_ok, Sc_L[k], 0.0)
+            air_U = air_U - wsel(dydy_ok, Sc_U[k], 0.0)
+            air_D = air_D - wsel(dydy_ok, Sc_D[k], 0.0)
+        droYdx_l.append(
+            wsel(ctx.g_dydx, (air_R - air_L) * dx1nn,
+                 wsel(active, 0.0, st.droYdx[fl.NUM_COMPONENTS])))
+        droYdy_l.append(
+            wsel(ctx.g_dydy, (air_U - air_D) * dy1mm,
+                 wsel(active, 0.0, st.droYdy[fl.NUM_COMPONENTS])))
+        droYdx = torch.stack(droYdx_l)
+        droYdy = torch.stack(droYdy_l)
+
+        wall = ctx.wall
+        U_L, U_R, U_U, U_D = neighbors(st.U, idXl, idXr, idYu, idYd)
+        V_L, V_R, V_U, V_D = neighbors(st.V, idXl, idXr, idYu, idYd)
+
+        if p.has_walls:
+            def grad_x(qr, ql):
+                # wall nodes use the asymmetric n1*right - n2*left weights
+                return wsel(wall, (qr * n1 - ql * n2) * dx1nn,
+                            (qr - ql) * dx1nn)
+
+            def grad_y(qu, qd):
+                return wsel(wall, (qu * n3 - qd * n4) * dy1mm,
+                            (qu - qd) * dy1mm)
+        else:
+            def grad_x(qr, ql):
+                return (qr - ql) * dx1nn
+
+            def grad_y(qu, qd):
+                return (qu - qd) * dy1mm
+
+        dUdx = wsel(active, grad_x(U_R, U_L), st.dUdx)
+        dVdx = wsel(active, grad_x(V_R, V_L), st.dVdx)
+        dUdy = wsel(active, grad_y(U_U, U_D), st.dUdy)
+        dVdy = wsel(active, grad_y(V_U, V_D), st.dVdy)
+
+        if ("keps" in p.models) or ("sa" in p.models):
+            dkdx = wsel(ctx.km, div_rho_c(grad_x(Sc_R[fl.i2d_k],
+                                                 Sc_L[fl.i2d_k])), st.dkdx)
+            dkdy = wsel(ctx.km, div_rho_c(grad_y(Sc_U[fl.i2d_k],
+                                                 Sc_D[fl.i2d_k])), st.dkdy)
+        else:
+            dkdx, dkdy = st.dkdx, st.dkdy
+        if "keps" in p.models:
+            depsdx = wsel(ctx.em, div_rho_c(grad_x(Sc_R[fl.i2d_eps],
+                                                   Sc_L[fl.i2d_eps])),
+                          st.depsdx)
+            depsdy = wsel(ctx.em, div_rho_c(grad_y(Sc_U[fl.i2d_eps],
+                                                   Sc_D[fl.i2d_eps])),
+                          st.depsdy)
+        else:
+            depsdx, depsdy = st.depsdx, st.depsdy
+
+        Tg_L, Tg_R, Tg_U, Tg_D = neighbors(st.Tg, idXl, idXr, idYu, idYd)
+        dTdx = wsel(active, (Tg_R - Tg_L) * dx1nn, st.dTdx)
+        dTdy = wsel(active, (Tg_U - Tg_D) * dy1mm, st.dTdy)
     else:
-        def div_rho_c(a):
-            return a / rho_cs
-
-    dydx_ok = ctx.dydx_ok
-    dydy_ok = ctx.dydy_ok
-    droYdx_l = []
-    droYdy_l = []
-    air_R = Sc_R[fl.i2d_Rho]
-    air_L = Sc_L[fl.i2d_Rho]
-    air_U = Sc_U[fl.i2d_Rho]
-    air_D = Sc_D[fl.i2d_Rho]
-    for k in range(4, 7):
-        gx = (Sc_R[k] - Sc_L[k]) * dx1nn
-        gy = (Sc_U[k] - Sc_D[k]) * dy1mm
-        droYdx_l.append(wsel(ctx.g_dydx, gx, st.droYdx[k - 4]))
-        droYdy_l.append(wsel(ctx.g_dydy, gy, st.droYdy[k - 4]))
-        air_R = air_R - wsel(dydx_ok, Sc_R[k], 0.0)
-        air_L = air_L - wsel(dydx_ok, Sc_L[k], 0.0)
-        air_U = air_U - wsel(dydy_ok, Sc_U[k], 0.0)
-        air_D = air_D - wsel(dydy_ok, Sc_D[k], 0.0)
-    droYdx_l.append(
-        wsel(ctx.g_dydx, (air_R - air_L) * dx1nn,
-             wsel(active, 0.0, st.droYdx[fl.NUM_COMPONENTS])))
-    droYdy_l.append(
-        wsel(ctx.g_dydy, (air_U - air_D) * dy1mm,
-             wsel(active, 0.0, st.droYdy[fl.NUM_COMPONENTS])))
-    droYdx = torch.stack(droYdx_l)
-    droYdy = torch.stack(droYdy_l)
-
-    wall = ctx.wall
-    U_L, U_R, U_U, U_D = neighbors(st.U, idXl, idXr, idYu, idYd)
-    V_L, V_R, V_U, V_D = neighbors(st.V, idXl, idXr, idYu, idYd)
-
-    if p.has_walls:
-        def grad_x(qr, ql):
-            # wall nodes use the asymmetric n1*right - n2*left weights
-            return wsel(wall, (qr * n1 - ql * n2) * dx1nn, (qr - ql) * dx1nn)
-
-        def grad_y(qu, qd):
-            return wsel(wall, (qu * n3 - qd * n4) * dy1mm, (qu - qd) * dy1mm)
-    else:
-        def grad_x(qr, ql):
-            return (qr - ql) * dx1nn
-
-        def grad_y(qu, qd):
-            return (qu - qd) * dy1mm
-
-    dUdx = wsel(active, grad_x(U_R, U_L), st.dUdx)
-    dVdx = wsel(active, grad_x(V_R, V_L), st.dVdx)
-    dUdy = wsel(active, grad_y(U_U, U_D), st.dUdy)
-    dVdy = wsel(active, grad_y(V_U, V_D), st.dVdy)
-
-    if ("keps" in p.models) or ("sa" in p.models):
-        dkdx = wsel(ctx.km, div_rho_c(grad_x(Sc_R[fl.i2d_k], Sc_L[fl.i2d_k])),
-                    st.dkdx)
-        dkdy = wsel(ctx.km, div_rho_c(grad_y(Sc_U[fl.i2d_k], Sc_D[fl.i2d_k])),
-                    st.dkdy)
-    else:
-        dkdx, dkdy = st.dkdx, st.dkdy
-    if "keps" in p.models:
-        depsdx = wsel(ctx.em, div_rho_c(grad_x(Sc_R[fl.i2d_eps],
-                                               Sc_L[fl.i2d_eps])), st.depsdx)
-        depsdy = wsel(ctx.em, div_rho_c(grad_y(Sc_U[fl.i2d_eps],
-                                               Sc_D[fl.i2d_eps])), st.depsdy)
-    else:
-        depsdx, depsdy = st.depsdx, st.depsdy
-
-    Tg_L, Tg_R, Tg_U, Tg_D = neighbors(st.Tg, idXl, idXr, idYu, idYd)
-    dTdx = wsel(active, (Tg_R - Tg_L) * dx1nn, st.dTdx)
-    dTdy = wsel(active, (Tg_U - Tg_D) * dy1mm, st.dTdy)
+        droYdx, droYdy = st.droYdx, st.droYdy
+        dUdx, dUdy, dVdx, dVdy = st.dUdx, st.dUdy, st.dVdx, st.dVdy
+        dTdx, dTdy = st.dTdx, st.dTdy
+        dkdx, dkdy, depsdx, depsdy = (st.dkdx, st.dkdy, st.depsdx,
+                                      st.depsdy)
 
     mid = st.replace(droYdx=droYdx, droYdy=droYdy,
                      dUdx=dUdx, dUdy=dUdy, dVdx=dVdx, dVdy=dVdy,
@@ -409,6 +418,13 @@ def expand(slim: SlimState, params: SolverParams, src_ext,
         lam_t=lam_t, y_plus=y_plus, **kw)
 
 
+def lam_t_const(state: SolverState, params):
+    """The chunk-constant lam_t plane: outside SM_NS FillNode2D never
+    writes lam_t, so it enters a chunk from the state (JAX step.py:569);
+    None under SM_NS, where ``expand`` rebuilds it as mu_t*CP."""
+    return None if params.sm == fl.SM_NS else state.lam_t
+
+
 def needs_y_plus(params) -> bool:
     """True iff the case's turbulence closure reads y+ in the inner loop
     (van Driest damping or Chien's k-eps)."""
@@ -468,13 +484,14 @@ def make_fast_chunk(meta: GridMeta, params: SolverParams, chem: ChemTables,
         if not params.has_ext_src:
             src_ext = torch.zeros_like(state.S)
         yp_const = state.y_plus if needs_y_plus(params) else None
+        lam_const = lam_t_const(state, params)
 
         S_c, beta_c, _, _, diag0 = pass12(state, meta, params,
                                           aux_at(start_iter), ctx=ctx)
         slim = shrink(state.replace(S=S_c, beta=beta_c))
         rms, dts, ddm, uns, probes = [], [], [], [], []
         for k in range(start_iter, start_iter + n_iters - 1):
-            full = expand(slim, params, src_ext, yp_const)
+            full = expand(slim, params, src_ext, yp_const, lam_const)
             out, dt_new, unstable = gfc(full, meta, params, chem, aux_at(k),
                                         ctx=ctx)
             out = out.replace(dt=dt_new)
@@ -487,7 +504,7 @@ def make_fast_chunk(meta: GridMeta, params: SolverParams, chem: ChemTables,
             uns.append(unstable)
             if probe_idx:
                 probes.append(probes_of(out))
-        full = expand(slim, params, src_ext, yp_const)
+        full = expand(slim, params, src_ext, yp_const, lam_const)
         out, dt_new, unstable_last = gfc(full, meta, params, chem,
                                          aux_at(start_iter + n_iters - 1),
                                          ctx=ctx)

@@ -2,6 +2,8 @@
 //
 //   gfc_kernel<BODY>     gradients -> FillNode2D (k-eps) -> dt field ->
 //                        Zeldovich chemistry, one thread per node
+//   gfc_euler_kernel     the same stage on Euler decks (ProblemType=0):
+//     <BODY>             the general body's Euler form on every tile
 //   pass12_kernel<BODY>  pass 1 (blending update) + pass 2 (residual,
 //                        blending factor, commit), one thread per node;
 //                        on decks with non-adiabatic walls the general
@@ -104,6 +106,22 @@
 // extra copies and shared-memory loads make it the slower one.  It stays
 // compiled as the A/B candidate of chip_smoke.py, not on a path.
 //
+// The Euler decks (p.sm != SM_NS) run the general body on every tile: the
+// spec body exists for NS + k-eps only (static_ctx.spec_supported), as on
+// the TPU.  Their gfc is the general body's Euler form, gfc_euler_kernel
+// (T1's non-NS staging, pallas_step.py:405-414): no gradients, no k-eps,
+// no viscous stress or heat flux in the fluxes, lam and mu carried (4 of
+// the 12 table lookups), and lam_t, which FillNode2D never writes outside
+// SM_NS, read from a chunk-constant meta plane (META_LAM_T) where the NS
+// body computes mu_t * CP.  It is a kernel of its own (gfc_node's EULER
+// flag at compile time), so the NS bodies keep their code, registers and
+// 3-CTA budget.  Its bytes a node: the general body's 300 less l_min and
+// the 4 int8 flags, which nothing reads without gradients, plus lam_t: 296.
+// pass12 has no Euler form: its pass 1 and pass 2 read the fluxes gfc
+// wrote, which carry or omit the viscous terms, and nothing else differs
+// (core/step.pass12 has no SM_NS branch), so pass12_kernel<general> (and
+// <dual>) run Euler decks as they are.
+//
 // Jacobi semantics: gfc_kernel reads the carry `cin` at +-1 and writes new
 // primitives into the other carry buffer `cout`; pass12_kernel reads the
 // scratch at +-1 and writes S and beta into `cout`.  The caller swaps the
@@ -145,6 +163,8 @@ struct Consts {
     int heat_fold;         // with heat: pass12's general body computes its
                            // node's SrcAdd itself (else it reads the plane
                            // heat_kernel wrote; the staged body always does)
+    int euler;             // an Euler deck: hf2d_gfc launches
+                           // gfc_euler_kernel (pass12 has no Euler form)
 };
 
 // kernel bodies (ops/fused_step.py _BODY_CODE): GENERAL is the general
@@ -579,11 +599,19 @@ __device__ __forceinline__ float mixture(const float* __restrict__ chemf,
 // gfc: core/step.gfc for one node (gradients, fill_node with standard
 // k-eps, the per-node dt limit, chemistry).  Returns the Tg<0 and
 // frozen-dt-overrun flags of the node.
+//
+// EULER is the form of the Euler decks (ProblemType=0, p.sm != SM_NS;
+// the TPU kernel's non-NS staging, pallas_step.py:405-414): no gradients
+// (the expanded state's zeros stand), no turbulence, no viscous stress or
+// heat flux in the fluxes, lam and mu carried (no table lookups), and
+// lam_t read from the chunk-constant meta plane META_LAM_T, which
+// FillNode2D never rewrites outside SM_NS.  A compile-time flag: the NS
+// bodies' code and registers stay as they were.
 // ---------------------------------------------------------------------------
 // `src` reads the carry `cin` (through the node's collapse) and the meta
 // planes mf (aux), `w` holds the node's ctx words, `st` its neighbour
 // flags.
-template <bool SPEC, class Src>
+template <bool SPEC, bool EULER, class Src>
 __device__ __forceinline__ void gfc_node(
         const Consts& c, const Src& src, const uint32_t* w,
         const Stencil& st, float* __restrict__ cout,
@@ -630,11 +658,13 @@ __device__ __forceinline__ void gfc_node(
     auto div_rho_c = [&](float a) {
         return c.fast_math ? a * r_rho_c : a / rho_cs;
     };
-    float dro_x[4], dro_y[4];
+    // outside SM_NS the gradients keep the expanded state's zeros and
+    // nothing reads them (EULER: the loads go with the uses)
+    float dro_x[4] = {0.f, 0.f, 0.f, 0.f}, dro_y[4] = {0.f, 0.f, 0.f, 0.f};
     float air_R = ld(CARRY_S, NB_R), air_L = ld(CARRY_S, NB_L);
     float air_U = ld(CARRY_S, NB_U), air_D = ld(CARRY_S, NB_D);
 #pragma unroll
-    for (int k = 4; k < 7; ++k) {
+    for (int k = 4; k < 7 && !EULER; ++k) {
         const float sR = ld(CARRY_S + k, NB_R), sL = ld(CARRY_S + k, NB_L);
         const float sU = ld(CARRY_S + k, NB_U), sD = ld(CARRY_S + k, NB_D);
         dro_x[k - 4] = g_dydx ? (sR - sL) * dx1nn : 0.f;
@@ -644,32 +674,35 @@ __device__ __forceinline__ void gfc_node(
         air_U = air_U - (dydy_ok ? sU : 0.f);
         air_D = air_D - (dydy_ok ? sD : 0.f);
     }
-    dro_x[3] = g_dydx ? (air_R - air_L) * dx1nn : 0.f;
-    dro_y[3] = g_dydy ? (air_U - air_D) * dy1mm : 0.f;
+    if (!EULER) {
+        dro_x[3] = g_dydx ? (air_R - air_L) * dx1nn : 0.f;
+        dro_y[3] = g_dydy ? (air_U - air_D) * dy1mm : 0.f;
+    }
 
-    const float dUdx = active ? grad_x(ld(CARRY_U, NB_R), ld(CARRY_U, NB_L))
-                              : 0.f;
-    const float dVdx = active ? grad_x(ld(CARRY_V, NB_R), ld(CARRY_V, NB_L))
-                              : 0.f;
-    const float dUdy = active ? grad_y(ld(CARRY_U, NB_U), ld(CARRY_U, NB_D))
-                              : 0.f;
-    const float dVdy = active ? grad_y(ld(CARRY_V, NB_U), ld(CARRY_V, NB_D))
-                              : 0.f;
-    const float dkdx = km ? div_rho_c(grad_x(ld(CARRY_S + 7, NB_R),
-                                             ld(CARRY_S + 7, NB_L)))
-                          : 0.f;
-    const float dkdy = km ? div_rho_c(grad_y(ld(CARRY_S + 7, NB_U),
-                                             ld(CARRY_S + 7, NB_D)))
-                          : 0.f;
-    const float depsdx = em ? div_rho_c(grad_x(ld(CARRY_S + 8, NB_R),
-                                               ld(CARRY_S + 8, NB_L)))
+    const bool grad = active && !EULER;
+    const float dUdx = grad ? grad_x(ld(CARRY_U, NB_R), ld(CARRY_U, NB_L))
                             : 0.f;
-    const float depsdy = em ? div_rho_c(grad_y(ld(CARRY_S + 8, NB_U),
-                                               ld(CARRY_S + 8, NB_D)))
+    const float dVdx = grad ? grad_x(ld(CARRY_V, NB_R), ld(CARRY_V, NB_L))
                             : 0.f;
-    const float dTdx = active
+    const float dUdy = grad ? grad_y(ld(CARRY_U, NB_U), ld(CARRY_U, NB_D))
+                            : 0.f;
+    const float dVdy = grad ? grad_y(ld(CARRY_V, NB_U), ld(CARRY_V, NB_D))
+                            : 0.f;
+    const float dkdx = km && !EULER
+        ? div_rho_c(grad_x(ld(CARRY_S + 7, NB_R), ld(CARRY_S + 7, NB_L)))
+        : 0.f;
+    const float dkdy = km && !EULER
+        ? div_rho_c(grad_y(ld(CARRY_S + 7, NB_U), ld(CARRY_S + 7, NB_D)))
+        : 0.f;
+    const float depsdx = em && !EULER
+        ? div_rho_c(grad_x(ld(CARRY_S + 8, NB_R), ld(CARRY_S + 8, NB_L)))
+        : 0.f;
+    const float depsdy = em && !EULER
+        ? div_rho_c(grad_y(ld(CARRY_S + 8, NB_U), ld(CARRY_S + 8, NB_D)))
+        : 0.f;
+    const float dTdx = grad
         ? (ld(CARRY_TG, NB_R) - ld(CARRY_TG, NB_L)) * dx1nn : 0.f;
-    const float dTdy = active
+    const float dTdy = grad
         ? (ld(CARRY_TG, NB_U) - ld(CARRY_TG, NB_D)) * dy1mm : 0.f;
 
     // ---------------- FillNode2D (hyper_flow_node.hpp:374-600) ------------
@@ -700,15 +733,16 @@ __device__ __forceinline__ void gfc_node(
     float Sk = s[7], Se = s[8];
     const float tmp1 = dUdy + dVdx;
     const float tmp3 = dUdx * dUdx + dVdy * dVdy;
-    const float l_base = fmaxf(src.aux(META_LMIN), c.min_dxdy) * F(0.41);
+    const float l_base = EULER ? 0.f
+        : fmaxf(src.aux(META_LMIN), c.min_dxdy) * F(0.41);
     const float l_s = l_base != 0.f ? l_base : 1.f;
     float mu_t_ke = mu_t == 0.f ? rho * l_base * l_base * grad_mag : mu_t;
     const float G = mu_t_ke * (tmp1 * tmp1 + F(2.0) * tmp3);
     const float w_mag = sqrtf(U * U + V * V + F(1.e-30));
     const float tmpI = F(0.005) * w_mag;
     const float k_init = F(1.5) * tmpI * tmpI * rho;
-    if (m_keps && kconst) Sk = k_init;
-    if (m_keps && (econst || ewall))
+    if (!EULER && m_keps && kconst) Sk = k_init;
+    if (!EULER && m_keps && (econst || ewall))
         Se = c.c_mu075 * powf(fmaxf(Sk / rho_s, 0.f), F(1.5)) / l_s;
     const float nu_t = fabsf(F(0.09) * (Se != 0.f ? Sk * Sk / Se : 0.f));
     if (is_mu_t && Se != 0.f) mu_t_ke = fminf(nu_t, mu_t_ke);
@@ -716,7 +750,7 @@ __device__ __forceinline__ void gfc_node(
     const float mt_se = c.fast_math ? mu_t_ke * F(1.0 / 1.3)
                                     : mu_t_ke / F(1.3);
     float a7 = 0.f, a8 = 0.f, b7 = 0.f, b8 = 0.f, src7 = 0.f, src8 = 0.f;
-    if (m_keps) {
+    if (!EULER && m_keps) {
         a7 = Sk * U - (mu + mt_sk) * dkdx;
         a8 = Se * U - (mu + mt_se) * depsdx;
         b7 = Sk * V - (mu + mt_sk) * dkdy;
@@ -764,38 +798,53 @@ __device__ __forceinline__ void gfc_node(
 
     // effective transport and viscous/convective fluxes (hpp:494-598)
     // rounded on its own (no contraction): lam_eff below is lam + lam_t
-    const float lam_t = __fmul_rn(mu_t, CP);
-    const float sig = wall ? c.sig_w : c.sig_f;
-    const float mu_eff = is_mu_t ? fmaxf(0.f, mu + mu_t * sig) : mu;
-    const float lam_eff = is_mu_t ? fmaxf(0.f, lam + lam_t * sig) : lam;
-    const float diff = lam_eff / CP;
-    const float dila = F(2.0 / 3.0) * mu_eff * (dUdx + dVdy);
-    const float sxx = F(2.0) * mu_eff * dUdx - dila;
-    const float syy = F(2.0) * mu_eff * dVdy - dila;
-    const float txy = mu_eff * (dUdy + dVdx);
-    float qx = lam_eff * dTdx, qy = lam_eff * dTdy;
-    const float cpt = CP * Tg_new;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-        qx = qx + diff * (cpt + c.hu[k]) * dro_x[k];
-        qy = qy + diff * (cpt + c.hu[k]) * dro_y[k];
-    }
-    const float RX3 = U * sxx + V * txy + qx;
-    const float RY3 = U * txy + V * syy + qy;
-
+    const float lam_t = EULER ? src.aux(META_LAM_T) : __fmul_rn(mu_t, CP);
     float an[9], bn[9];
     an[0] = s[1];
-    an[1] = (p_new + s[1] * U) - sxx;
-    an[2] = s[2] * U - txy;
-    an[3] = (s[3] + p_new) * U - RX3;
     bn[0] = s[2];
-    bn[1] = s[2] * U - txy;
-    bn[2] = (p_new + s[2] * V) - syy;
-    bn[3] = (s[3] + p_new) * V - RY3;
+    if (EULER) {
+        // the convective fluxes alone (physics.py fill_node outside SM_NS)
+        an[1] = p_new + s[1] * U;
+        an[2] = s[2] * U;
+        an[3] = (s[3] + p_new) * U;
+        bn[1] = s[2] * U;
+        bn[2] = p_new + s[2] * V;
+        bn[3] = (s[3] + p_new) * V;
 #pragma unroll
-    for (int k = 4; k < 7; ++k) {
-        an[k] = s[k] * U - diff * dro_x[k - 4];
-        bn[k] = s[k] * V - diff * dro_y[k - 4];
+        for (int k = 4; k < 7; ++k) {
+            an[k] = s[k] * U;
+            bn[k] = s[k] * V;
+        }
+    } else {
+        const float sig = wall ? c.sig_w : c.sig_f;
+        const float mu_eff = is_mu_t ? fmaxf(0.f, mu + mu_t * sig) : mu;
+        const float lam_eff = is_mu_t ? fmaxf(0.f, lam + lam_t * sig) : lam;
+        const float diff = lam_eff / CP;
+        const float dila = F(2.0 / 3.0) * mu_eff * (dUdx + dVdy);
+        const float sxx = F(2.0) * mu_eff * dUdx - dila;
+        const float syy = F(2.0) * mu_eff * dVdy - dila;
+        const float txy = mu_eff * (dUdy + dVdx);
+        float qx = lam_eff * dTdx, qy = lam_eff * dTdy;
+        const float cpt = CP * Tg_new;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            qx = qx + diff * (cpt + c.hu[k]) * dro_x[k];
+            qy = qy + diff * (cpt + c.hu[k]) * dro_y[k];
+        }
+        const float RX3 = U * sxx + V * txy + qx;
+        const float RY3 = U * txy + V * syy + qy;
+
+        an[1] = (p_new + s[1] * U) - sxx;
+        an[2] = s[2] * U - txy;
+        an[3] = (s[3] + p_new) * U - RX3;
+        bn[1] = s[2] * U - txy;
+        bn[2] = (p_new + s[2] * V) - syy;
+        bn[3] = (s[3] + p_new) * V - RY3;
+#pragma unroll
+        for (int k = 4; k < 7; ++k) {
+            an[k] = s[k] * U - diff * dro_x[k - 4];
+            bn[k] = s[k] * V - diff * dro_y[k - 4];
+        }
     }
     an[7] = a7;
     an[8] = a8;
@@ -851,8 +900,12 @@ __device__ __forceinline__ void gfc_node(
     const float R_new = chemf[0] * Yfu + chemf[1] * Yox + chemf[2] * Ycp
                         + chemf[3] * Yair;
     const float CP_new = mixture(chemf, chemi, 0, Tg_f, Yfu, Yox, Ycp, Yair);
-    const float lam_new = mixture(chemf, chemi, 1, Tg_f, Yfu, Yox, Ycp, Yair);
-    const float mu_new = mixture(chemf, chemi, 2, Tg_f, Yfu, Yox, Ycp, Yair);
+    // outside SM_NS lam and mu are carried (physics.py calc_chemical_
+    // reactions)
+    const float lam_new = EULER ? lam
+        : mixture(chemf, chemi, 1, Tg_f, Yfu, Yox, Ycp, Yair);
+    const float mu_new = EULER ? mu
+        : mixture(chemf, chemi, 2, Tg_f, Yfu, Yox, Ycp, Yair);
     Yair = Yair < F(1.e-5) ? 0.f : Yair;
     Ycp = Ycp < F(1.e-8) ? 0.f : Ycp;
     Yox = Yox < F(1.e-8) ? 0.f : Yox;
@@ -887,11 +940,12 @@ __device__ __forceinline__ void gfc_node(
     cout[CARRY_MU * P + n] = active ? mu_new : mu;
     cout[CARRY_MU_T * P + n] = guard ? mu_t : mu_t0;
     // what the heat stage reads: lam after chemistry + lam_t (with the CP
-    // before chemistry, physics.py fill_node), as core/step.gfc leaves them
+    // before chemistry, physics.py fill_node; EULER: the constant plane),
+    // as core/step.gfc leaves them
     if (!SPEC && c.heat)
         scr[SCR_LAM_EFF * P + n] =
             __fadd_rn(active ? lam_new : lam,
-                      guard ? lam_t : __fmul_rn(mu_t0, CP));
+                      guard || EULER ? lam_t : __fmul_rn(mu_t0, CP));
 }
 
 // ---------------------------------------------------------------------------
@@ -1135,7 +1189,7 @@ __device__ __forceinline__ bool spec_tile(const int32_t* __restrict__ flags,
 }
 
 // One node of gfc on direct global loads.
-template <bool SPEC>
+template <bool SPEC, bool EULER>
 __device__ __forceinline__ void gfc_direct(
         const Consts& c, const float* __restrict__ cin,
         float* __restrict__ cout, float* __restrict__ scr,
@@ -1149,7 +1203,7 @@ __device__ __forceinline__ void gfc_direct(
     int8_t id4[4];
     load_ctx<SPEC>(w, ctxw, P, n);
     load_idn<SPEC>(id4, idn, P, n);
-    gfc_node<SPEC>(c, direct_src<SPEC>(c, cin, mf, w, P, i, j), w,
+    gfc_node<SPEC, EULER>(c, direct_src<SPEC>(c, cin, mf, w, P, i, j), w,
                    make_stencil<SPEC>(id4), cout, scr, chemf, chemi, dt,
                    cfl_scen, mu_t_iter, uns, ovr);
 }
@@ -1212,29 +1266,62 @@ __device__ __forceinline__ void pass12_partials(const ArrayAcc& acc,
     tile_partials(red, tile, part_f);
 }
 
-template <int BODY>
-__global__ void __launch_bounds__(CTA_THREADS)
-gfc_kernel(const Consts c, const float* __restrict__ cin,
-           float* __restrict__ cout, float* __restrict__ scr,
-           const int8_t* __restrict__ idn, const float* __restrict__ mf,
-           const int32_t* __restrict__ ctxw, const float* __restrict__ chemf,
-           const int32_t* __restrict__ chemi, const float* __restrict__ dtp,
-           const float* __restrict__ aux, const int32_t* __restrict__ tiles,
-           const int32_t* __restrict__ flags, int32_t* __restrict__ part_i) {
+// A CTA of gfc over its tile; EULER: every tile runs the Euler form of the
+// general body (an Euler deck has no spec tiles, spec_supported).
+template <int BODY, bool EULER>
+__device__ __forceinline__ void gfc_tile(
+        const Consts& c, const float* __restrict__ cin,
+        float* __restrict__ cout, float* __restrict__ scr,
+        const int8_t* __restrict__ idn, const float* __restrict__ mf,
+        const int32_t* __restrict__ ctxw, const float* __restrict__ chemf,
+        const int32_t* __restrict__ chemi, const float* __restrict__ dtp,
+        const float* __restrict__ aux, const int32_t* __restrict__ tiles,
+        const int32_t* __restrict__ flags, int32_t* __restrict__ part_i) {
     const int tile = cta_tile<BODY>(tiles);
     const int i = (tile / c.nby) * TILE_X + threadIdx.y;
     const int j = (tile % c.nby) * TILE_Y + threadIdx.x;
     bool uns = false, ovr = false;
     if (i < c.X && j < c.Y) {
-        if (spec_tile<BODY>(flags, tile))
-            gfc_direct<true>(c, cin, cout, scr, idn, mf, ctxw, chemf, chemi,
-                             *dtp, aux[1], aux[2] > F(0.5), i, j, uns, ovr);
+        if (!EULER && spec_tile<BODY>(flags, tile))
+            gfc_direct<true, false>(c, cin, cout, scr, idn, mf, ctxw, chemf,
+                                    chemi, *dtp, aux[1], aux[2] > F(0.5), i,
+                                    j, uns, ovr);
         else
-            gfc_direct<false>(c, cin, cout, scr, idn, mf, ctxw, chemf, chemi,
-                              *dtp, aux[1], aux[2] > F(0.5), i, j, uns, ovr);
+            gfc_direct<false, EULER>(c, cin, cout, scr, idn, mf, ctxw, chemf,
+                                     chemi, *dtp, aux[1], aux[2] > F(0.5), i,
+                                     j, uns, ovr);
     }
     gfc_partials(c, i, uns, ovr, tile, part_i);
 }
+
+#define HF2D_GFC_PARAMS                                                      \
+    const Consts c, const float* __restrict__ cin, float* __restrict__ cout, \
+        float* __restrict__ scr, const int8_t* __restrict__ idn,            \
+        const float* __restrict__ mf, const int32_t* __restrict__ ctxw,     \
+        const float* __restrict__ chemf, const int32_t* __restrict__ chemi, \
+        const float* __restrict__ dtp, const float* __restrict__ aux,       \
+        const int32_t* __restrict__ tiles,                                  \
+        const int32_t* __restrict__ flags, int32_t* __restrict__ part_i
+#define HF2D_GFC_FORWARD                                                     \
+    c, cin, cout, scr, idn, mf, ctxw, chemf, chemi, dtp, aux, tiles, flags, \
+        part_i
+
+template <int BODY>
+__global__ void __launch_bounds__(CTA_THREADS)
+gfc_kernel(HF2D_GFC_PARAMS) {
+    gfc_tile<BODY, false>(HF2D_GFC_FORWARD);
+}
+
+// The Euler decks' gfc (BODY_GENERAL or BODY_DUAL): the general body's
+// Euler form on every tile.  A kernel of its own, so the NS kernels keep
+// their symbols, code and budgets.
+template <int BODY>
+__global__ void __launch_bounds__(CTA_THREADS)
+gfc_euler_kernel(HF2D_GFC_PARAMS) {
+    gfc_tile<BODY, true>(HF2D_GFC_FORWARD);
+}
+#undef HF2D_GFC_PARAMS
+#undef HF2D_GFC_FORWARD
 
 // 3 CTAs an SM (at most 85 registers, so 80) for every body: unbounded,
 // ptxas gives the general body 88 registers and so 2 CTAs an SM, which ran
@@ -1346,7 +1433,7 @@ gfc_window_kernel(const Consts c, const float* __restrict__ cin,
             uint32_t w[CTX_N_WORDS];
             int8_t id4[4];
             window_ctx<GfcPlanes>(w, id4, buf);
-            gfc_node<false>(c,
+            gfc_node<false, false>(c,
                             window_src<false, GfcPlanes>(c, buf, mf, w, P, i,
                                                          j),
                             w, make_stencil<false>(id4), cout, scr, chemf,
@@ -1506,7 +1593,7 @@ int hf2d_gfc(int body, const void* consts, const void* cin, void* cout,
     const Consts c = *static_cast<const Consts*>(consts);
     const dim3 block(TILE_Y, TILE_X);
     auto s = static_cast<cudaStream_t>(stream);
-    if (body == BODY_STAGED) {
+    if (body == BODY_STAGED && !c.euler) {
         int ctas = 0;
         const int err = GFC_WINDOW.grid(&ctas, nullptr);
         if (err) return err;
@@ -1530,7 +1617,14 @@ int hf2d_gfc(int body, const void* consts, const void* cin, void* cout,
         static_cast<const int32_t*>(chemi), static_cast<const float*>(dt), \
         static_cast<const float*>(aux), static_cast<const int32_t*>(tiles), \
         static_cast<const int32_t*>(flags), static_cast<int32_t*>(part_i)
-    if (body == BODY_GENERAL)
+    if (c.euler && body == BODY_GENERAL)
+        gfc_euler_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
+            HF2D_GFC_ARGS);
+    else if (c.euler && body == BODY_DUAL)
+        gfc_euler_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(HF2D_GFC_ARGS);
+    else if (c.euler)   // no spec or staged body on an Euler deck
+        return static_cast<int>(cudaErrorInvalidValue);
+    else if (body == BODY_GENERAL)
         gfc_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(HF2D_GFC_ARGS);
     else if (body == BODY_SPEC)
         gfc_kernel<BODY_SPEC><<<n_tiles, block, 0, s>>>(HF2D_GFC_ARGS);
@@ -1602,13 +1696,15 @@ int hf2d_heat(const void* consts, const void* cout, void* scr,
 // stack), out[2] static shared memory, out[3] the dynamic shared memory of
 // a launch, out[4] the CTAs of CTA_THREADS threads an SM holds at that
 // shared memory, out[5] the device's SM count.  `kernel` is 8 * stage +
-// body: stage 0 gfc, 1 pass12 (body BODY_*), 2 heat (body ignored).
+// body: stage 0 gfc, 1 pass12 (body BODY_*), 2 heat (body ignored), 3
+// gfc_euler (BODY_GENERAL or BODY_DUAL).
 int hf2d_kernel_info(int kernel, int* out) {
     const void* fn = nullptr;
     const int stage = kernel / 8, body = kernel % 8;
     size_t dyn = 0;
     int ctas = 0, per_sm = 0, err = 0;
-    if (stage > 2 || (stage < 2 && body > BODY_STAGED))
+    if (stage > 3 || (stage < 2 && body > BODY_STAGED)
+        || (stage == 3 && body != BODY_GENERAL && body != BODY_DUAL))
         return static_cast<int>(cudaErrorInvalidValue);
     if (stage < 2 && body == BODY_STAGED) {
         const WindowKernel& k = stage == 0 ? GFC_WINDOW : PASS12_WINDOW;
@@ -1624,6 +1720,9 @@ int hf2d_kernel_info(int kernel, int* out) {
         fn = body == BODY_SPEC ? (const void*)pass12_kernel<BODY_SPEC>
            : body == BODY_DUAL ? (const void*)pass12_kernel<BODY_DUAL>
                                : (const void*)pass12_kernel<BODY_GENERAL>;
+    } else if (stage == 3) {
+        fn = body == BODY_DUAL ? (const void*)gfc_euler_kernel<BODY_DUAL>
+                               : (const void*)gfc_euler_kernel<BODY_GENERAL>;
     } else {
         fn = (const void*)heat_kernel;
     }

@@ -41,6 +41,11 @@ Two dispatch forms issue gfc and pass12 (``dispatch``):
 
 Each tile runs the same body in both forms, so they give the same bits.
 
+Euler decks (ProblemType=0) have no spec tiles: every tile runs the general
+body, gfc in its Euler form (``gfc_euler_kernel``, which reads lam_t from
+the chunk-constant meta plane META_LAM_T; the TPU kernel's non-NS staging,
+pallas_step.py:405-414), pass12 as on NS decks.
+
 The loop reads nothing back to the host and copies nothing to the device:
 dt and the per-iteration scalars stay on the device, in the working dtype,
 and the kernels read them through pointers.  They pass through float32
@@ -79,7 +84,7 @@ from ..core.state import (_CHEM_PROPS, _CHEM_SPECIES, ChemTables, GridMeta,
 from ..core.static_ctx import (_CTX_BOOL_PLANES, _CTX_BOOL_STACKS,
                                build_packed_ctx, build_static_ctx)
 from ..core.step import (SlimState, StepAux, expand, gfc, has_heat_stage,
-                         make_aux, pass12, shrink)
+                         lam_t_const, make_aux, pass12, shrink)
 
 # CTA tile (rows i, columns j); csrc/hf2d_ctx_bits.cuh TILE_X / TILE_Y
 TILE = (8, 32)
@@ -96,15 +101,18 @@ SCR_SRCADD_E = 30   # SrcAdd of rhoE, written by heat_kernel and read by
                     # the unfolded pass12 (the A/B candidates only)
 _PRIMS = 18   # carry planes from here on are written by gfc
 
-# the kernels the solver's paths launch; then the forms no path launches,
-# which stay as chip_smoke.py's A/B candidates: heat_kernel, the heat stage
-# as a launch of its own (folded into pass12's general body, it saves the
-# launch and the SrcAdd plane's round trip and won the A/B on an H100), and
-# the general body on staged windows, which lost to the general body on an
-# H100 (PERF.md, Findings)
-PATH_KERNEL_NAMES = ("gfc_kernel<spec>", "gfc_kernel<general>",
-                     "pass12_kernel<spec>", "pass12_kernel<general>",
-                     "gfc_kernel<dual>", "pass12_kernel<dual>")
+# the kernels the solver's paths launch (on Euler decks gfc_euler_kernel
+# in place of gfc_kernel: the general body's Euler form; pass12 has none);
+# then the forms no path launches, which stay as chip_smoke.py's A/B
+# candidates: heat_kernel, the heat stage as a launch of its own (folded
+# into pass12's general body, it saves the launch and the SrcAdd plane's
+# round trip and won the A/B on an H100), and the general body on staged
+# windows, which lost to the general body on an H100 (PERF.md, Findings)
+NS_KERNEL_NAMES = ("gfc_kernel<spec>", "gfc_kernel<general>",
+                   "pass12_kernel<spec>", "pass12_kernel<general>",
+                   "gfc_kernel<dual>", "pass12_kernel<dual>")
+EULER_KERNEL_NAMES = ("gfc_euler_kernel<general>", "gfc_euler_kernel<dual>")
+PATH_KERNEL_NAMES = NS_KERNEL_NAMES + EULER_KERNEL_NAMES
 KERNEL_NAMES = PATH_KERNEL_NAMES + ("heat_kernel", "gfc_kernel<staged>",
                                     "pass12_kernel<staged>")
 DISPATCH_FORMS = ("lists", "dual")
@@ -124,6 +132,13 @@ def halo_depth(params) -> int:
     """Stencil dependency depth of one iteration: 2, or 3 with d2*-NULL
     soft BCs (pallas_step.py:79-99, without its HF2D_HALO override)."""
     return 3 if (params.has_d2x or params.has_d2y) else 2
+
+
+def is_euler(params) -> bool:
+    """An Euler deck (ProblemType=0): gfc runs the general body's Euler
+    form (``gfc_euler_kernel``) with lam_t as a chunk-constant input plane
+    (the TPU kernel's staging outside SM_NS, pallas_step.py:405-414)."""
+    return params.sm != fl.SM_NS
 
 
 def carry_views(carry: torch.Tensor, dt) -> SlimState:
@@ -258,6 +273,7 @@ CARRY = {name: sum(n for _, n in CARRY_FIELDS[:k])
          for k, (name, _) in enumerate(CARRY_FIELDS)}
 SCR_S, SCR_A, SCR_B, SCR_SRC_K, SCR_SRC_EPS = 0, 9, 18, 27, 28
 META_LMIN = 4       # FusedStep.mf: BGX, BGY, Uw, Vw, l_min
+META_LAM_T = 5      # and on Euler decks lam_t (hf2d_ctx_bits.cuh)
 # the planes each stage reads, by slot (fused_step.cu GfcPlanes,
 # Pass12Planes): at +-1 from its stencil stack (gfc the carry, pass12 the
 # scratch; a window each), at the node from the stencil stack and from its
@@ -396,7 +412,8 @@ class KernelConsts(ctypes.Structure):
         "sig_f", "k0", "k0_div", "tf", "c_mu075")] + [
         ("hu", ctypes.c_float * 4)] + [(f, ctypes.c_int) for f in (
             "X", "Y", "nby", "has_walls", "fast_math", "bff", "alt_rms",
-            "serial_rms", "zeldovich", "heat", "x0", "x1", "heat_fold")]
+            "serial_rms", "zeldovich", "heat", "x0", "x1", "heat_fold",
+            "euler")]
 
 
 def kernel_consts(p: SolverParams, plan: TilePlan, heat: bool,
@@ -411,7 +428,8 @@ def kernel_consts(p: SolverParams, plan: TilePlan, heat: bool,
         fast_math=int(p.fast_math), bff=p.bff,
         alt_rms=int(p.isAlternateRMS), serial_rms=int(p.serial_rms_mode),
         zeldovich=int(p.chemistry == fl.CRM_ZELDOVICH), heat=int(heat),
-        x0=plan.window[0], x1=plan.window[1], heat_fold=int(fold))
+        x0=plan.window[0], x1=plan.window[1], heat_fold=int(fold),
+        euler=int(is_euler(p)))
 
 
 def pack_chem(chem: ChemTables, p: SolverParams):
@@ -443,7 +461,9 @@ class FusedStep:
     launches, nowhere else).  ``dispatch`` is the form gfc and pass12 are
     issued in (DISPATCH_FORMS).  With the heat stage, pass12's general
     body computes its nodes' heat source itself: an iteration launches no
-    heat_kernel (``iteration_launches``)."""
+    heat_kernel (``iteration_launches``).  On an Euler deck gfc is
+    ``gfc_euler_kernel`` and reads lam_t from meta plane META_LAM_T, which
+    the chunk sets from its state (``set_lam_t``)."""
 
     def __init__(self, meta: GridMeta, params: SolverParams,
                  chem: ChemTables, plan: TilePlan, dispatch: str, ctx):
@@ -456,9 +476,11 @@ class FusedStep:
         # the heat stage runs where the case has it and some node reaches
         # it; otherwise SrcAdd stays 0, as in core/step.gfc
         self.has_heat = has_heat_stage(p) and plan.heat_tiles.numel() > 0
+        self.euler = is_euler(p)
         self.idn = torch.stack([meta.idXl, meta.idXr, meta.idYu, meta.idYd])
         self.mf = torch.stack([meta.BGX, meta.BGY, meta.Uw, meta.Vw,
-                               meta.l_min]).to(p.torch_dtype)
+                               meta.l_min] + [torch.zeros_like(meta.l_min)]
+                              * self.euler).to(p.torch_dtype)
         self.ctxw = build_packed_ctx(meta, p)
         self.chemf, self.chemi = pack_chem(chem, p)
         self.zero_src = torch.zeros((fl.NUM_EQ, p.MaxX, p.MaxY),
@@ -474,11 +496,22 @@ class FusedStep:
     def reset_launches(self) -> None:
         self.launches = dict.fromkeys(KERNEL_NAMES, 0)
 
+    def set_lam_t(self, lam_t: torch.Tensor) -> None:
+        """The chunk-constant lam_t plane of an Euler deck (the state's
+        lam_t at the chunk's entry, JAX step.py:569); nothing on NS."""
+        if self.euler:
+            self.mf[META_LAM_T].copy_(lam_t)
+
+    def gfc_name(self, body: str) -> str:
+        """The name of gfc's kernel instantiation for ``body``."""
+        kernel = "gfc_euler_kernel" if self.euler else "gfc_kernel"
+        return f"{kernel}<{body}>"
+
     def iteration_launches(self) -> list:
         """The kernels one iteration launches, in order (no launch needs
         CUDA to be planned)."""
         bodies = self._bodies()
-        return ([f"gfc_kernel<{b}>" for b in bodies]
+        return ([self.gfc_name(b) for b in bodies]
                 + [f"pass12_kernel<{b}>" for b in bodies])
 
     # ------------------------------------------------------------------
@@ -524,10 +557,16 @@ class FusedStep:
     def launch_gfc(self, body, cin, cout, scr, dt, aux, part_i):
         """One gfc_kernel instantiation over its tiles (CUDA tensors);
         ``body`` is "spec", "general", "dual" or "staged" (the window
-        kernel on its persistent grid)."""
+        kernel on its persistent grid).  On an Euler deck, the general or
+        the dual body of gfc_euler_kernel (no spec tiles; the staged form,
+        an A/B candidate of the NS decks, has no Euler form)."""
+        if self.euler and body not in ("general", "dual"):
+            raise NotImplementedError(
+                f"gfc_euler_kernel has no {body!r} body (an Euler deck's "
+                f"gfc runs the general body's Euler form)")
         self._check_cuda(cin, cout, scr, dt, aux, self.mf, self.chemf)
         tiles, n_tiles = self.plan.launch_grid(body)
-        self._launch("hf2d_gfc", f"gfc_kernel<{body}>", (
+        self._launch("hf2d_gfc", self.gfc_name(body), (
             _BODY_CODE[body], ctypes.addressof(self.consts), _ptr(cin),
             _ptr(cout), _ptr(scr), _ptr(self.idn), _ptr(self.mf),
             _ptr(self.ctxw), _ptr(self.chemf), _ptr(self.chemi), _ptr(dt),
@@ -597,8 +636,14 @@ class FusedStep:
         return StepAux(beta_scen=row[0], cfl_scen=row[1],
                        is_mu_t_iter=row[2] > 0.5)
 
+    def lam_t(self):
+        """The lam_t ``expand`` takes: the Euler plane, else None (mu_t*CP
+        under SM_NS)."""
+        return self.mf[META_LAM_T] if self.euler else None
+
     def gfc_plain(self, cin, cout, scr, dt, aux, part_i):
-        full = expand(carry_views(cin, dt), self.params, self.zero_src)
+        full = expand(carry_views(cin, dt), self.params, self.zero_src,
+                      lam_t=self.lam_t())
         out, dt_field, unstable = gfc(full, self.meta, self.params,
                                       self.chem, self._aux(aux),
                                       return_fields=True, ctx=self.ctx,
@@ -807,6 +852,7 @@ class KernelChunk:
         p, meta, step = self.params, self.meta, self.step
         dtype = p.torch_dtype
         ctx = step.ctx
+        step.set_lam_t(state.lam_t)
         ca, diag0, raw, kaux = self.prologue(state, n_iters, start_iter)
         cb = torch.empty_like(ca)
         scr = torch.empty((N_SCRATCH,) + ca.shape[1:], dtype=dtype,
@@ -831,7 +877,8 @@ class KernelChunk:
                            dt.expand(kk)))
 
         # epilogue: the final iteration's gfc on the whole grid
-        full = expand(carry_views(ca, dt), p, step.zero_src)
+        full = expand(carry_views(ca, dt), p, step.zero_src,
+                      lam_t=lam_t_const(state, p))
         out, dt_new, unstable_last = gfc(full, meta, p, self.chem,
                                          self.aux_at(start_iter + n_iters - 1),
                                          ctx=ctx)

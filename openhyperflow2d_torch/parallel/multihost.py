@@ -39,8 +39,13 @@ def init_distributed(backend: str = "nccl", rank: int = None,
             dist.init_process_group(backend, store=store, rank=rank,
                                     world_size=world_size)
         else:
-            dist.init_process_group(backend, init_method=init_method,
-                                    rank=rank, world_size=world_size)
+            # torchrun's environment gives the rank and world size where
+            # they are not passed (torch takes -1 for "from the
+            # environment", and refuses None)
+            dist.init_process_group(
+                backend, init_method=init_method,
+                rank=-1 if rank is None else rank,
+                world_size=-1 if world_size is None else world_size)
     if dist.get_backend() == "nccl":
         local = int(os.environ.get(
             "LOCAL_RANK", dist.get_rank() % torch.cuda.device_count()))

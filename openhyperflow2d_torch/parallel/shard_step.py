@@ -56,8 +56,9 @@ from ..core.step import (expand, gfc, has_heat_stage, lead, make_aux,
                          pass12, shrink, trail)
 from ..ops.fused_step import (N_SCRATCH, FusedStep, carry_views,
                               chunk_diags, fuse_blocks, halo_depth,
-                              heat_node_map, local_dt, make_tile_plan,
-                              pack_carry, rms_of, serial_dt, tile_totals)
+                              heat_node_map, is_euler, local_dt,
+                              make_tile_plan, pack_carry, rms_of, serial_dt,
+                              tile_totals)
 
 META_FIELDS = [f.name for f in dataclasses.fields(GridMeta)
                if f.name not in ("dx_map", "dy_map")]
@@ -210,6 +211,15 @@ class _StripChunk:
             [b[..., :H, :] for b in bufs],
             [b[..., H + X_loc:, :] for b in bufs], async_op=async_op)
 
+    def lam_ext(self, state: StripState, ablate: bool = False) -> list:
+        """Each strip's chunk-constant lam_t over its extended strip on an
+        Euler deck, its halos from the neighbours (``lam_ext``,
+        shard_step.py:163, 342, 391; ``ablate``: as ``extend``); Nones
+        under SM_NS, where expand rebuilds lam_t as mu_t*CP."""
+        if not is_euler(self.params):
+            return [None] * len(state.strips)
+        return self.extend([st.lam_t for st in state.strips], ablate)
+
     def global_dt(self, local, dt_prev):
         """dt from each strip's local minimum: the minimum across strips,
         then the serial build's monotone rule."""
@@ -274,13 +284,18 @@ class _StripChunk:
         dt = state.strips[0].dt
         return outs, {"RMS": rms, "DD_max": ddm, "dt_used": dt}
 
-    def epilogue(self, ext_carry, dt, state: StripState, it: int):
+    def epilogue(self, ext_carry, dt, state: StripState, it: int,
+                 lam=None):
         """gfc of iteration ``it`` (with its heat stage) on each extended
-        carry, halos filled; returns (StripState, dt_new, unstable)."""
+        carry, halos filled; ``lam``: the strips' ``lam_ext`` (None: made
+        here); returns (StripState, dt_new, unstable)."""
+        if lam is None:
+            lam = self.lam_ext(state)
         outs, dts, uns = [], [], []
         aux = self.aux_at(it)
-        for c, m, ctx in zip(ext_carry, self.meta_ext, self.ctx):
-            full = expand(carry_views(c, dt), self.p_loc, self.zero_src)
+        for c, m, ctx, lam_t in zip(ext_carry, self.meta_ext, self.ctx, lam):
+            full = expand(carry_views(c, dt), self.p_loc, self.zero_src,
+                          lam_t=lam_t)
             out, dt_field, unstable = gfc(full, m, self.p_loc, self.chem,
                                           aux, return_fields=True, ctx=ctx)
             outs.append(out)
@@ -322,14 +337,17 @@ class ShardChunk(_StripChunk):
                  src_ext=None):
         p, pl = self.params, self.p_loc
         own, diag0 = self.prologue(state, start_iter)
+        lam = self.lam_ext(state, self.halo_ablate)
         dt = diag0["dt_used"]
         rms, ddm, dts, uns = [], [], [], []
         for k in range(start_iter, start_iter + n_iters - 1):
             ext = self.extend(own, self.halo_ablate)
             aux_g, aux_p = self.aux_at(k), self.aux_at(k + 1)
             outs, local = [], []
-            for c, m, ctx in zip(ext, self.loop_meta, self.loop_ctx):
-                full = expand(carry_views(c, dt), pl, self.zero_src)
+            for c, m, ctx, lam_t in zip(ext, self.loop_meta, self.loop_ctx,
+                                        lam):
+                full = expand(carry_views(c, dt), pl, self.zero_src,
+                              lam_t=lam_t)
                 out, dt_field, unstable = gfc(full, m, pl, self.chem, aux_g,
                                               return_fields=True, ctx=ctx)
                 outs.append((out, unstable))
@@ -441,6 +459,10 @@ class KernelShardChunk(_StripChunk):
                  src_ext=None):
         p, dtype = self.params, self.params.torch_dtype
         ca, diag0, raw, kaux = self.start(state, n_iters, start_iter)
+        lam = self.lam_ext(state)
+        for step, lam_t in zip(self.steps, lam):
+            if lam_t is not None:
+                step.set_lam_t(lam_t)
         dev, Y, K = self.comm.device, p.MaxY, self.K
         cb = [torch.empty_like(c) for c in ca]
         scr, part_f, part_i = [], [], []
@@ -484,7 +506,7 @@ class KernelShardChunk(_StripChunk):
             pending.wait()
 
         out, _, unstable_last = self.epilogue(ca, dt, state,
-                                              start_iter + n_iters - 1)
+                                              start_iter + n_iters - 1, lam)
         return out, chunk_diags(diag0, blocks, unstable_last)
 
 

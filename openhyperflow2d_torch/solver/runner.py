@@ -55,8 +55,6 @@ def check_supported(params) -> None:
     port does not do yet (nothing computes a partial result)."""
     p = params
     missing = []
-    if p.sm != fl.SM_NS:
-        missing.append("Euler decks (ProblemType=0)")
     other = [m for m in p.models if m != "keps"]
     if other:
         missing.append(f"turbulence closures {other}")
@@ -326,8 +324,91 @@ class Solver:
         return {k: v.detach().cpu().contiguous().numpy()
                 for k, v in self.state.__dict__.items()}
 
+    def recalc_y_plus_host(self):
+        """Host (numpy) form of the per-cycle y+ update, the oracle of
+        ``recalc_y_plus`` in the tests (JAX runner.py:264-289); returns the
+        y+ plane and changes nothing."""
+        st = self.host_state()
+        wn = self.case.wall_nodes
+        iw = wn[:, 0]
+        jw = wn[:, 1]
+        tau_w = (np.abs(st["dUdy"][iw, jw]) + np.abs(st["dVdx"][iw, jw])) \
+            * st["mu"][iw, jw]
+        rho_w = st["S"][0][iw, jw]
+        u_w = np.sqrt(np.where(rho_w != 0,
+                               tau_w / np.where(rho_w != 0, rho_w, 1), 0.0)
+                      + 1e-30)
+        u_map = np.zeros((self.params.MaxX, self.params.MaxY))
+        u_map[iw, jw] = u_w
+        g = self.case.grid
+        active = (g.is_cond(fl.CT_NODE_IS_SET_2D)
+                  & ~g.is_cond(fl.CT_SOLID_2D))
+        mu = st["mu"]
+        mu_s = np.where(mu != 0, mu, 1)
+        l_min = np.asarray(g.l_min).astype(self.params.dtype)
+        y_plus = np.abs(u_map[g.i_wall, g.j_wall] * l_min * st["S"][0]
+                        / mu_s)
+        return np.where(active, y_plus, st["y_plus"])
+
     def _probe_index(self, x: float, y: float):
         p = self.params
         i = int((x - p.dx * 0.5) / p.dx)
         j = int(y / p.dy)
         return (min(max(i, 0), p.MaxX - 1), min(max(j, 0), p.MaxY - 1))
+
+    def probe_many(self, points):
+        """Monitor-point (p, T) of a list of (x, y) probes with one fetch
+        to the host a call (deeps2d_core.cpp:1470-1473).  On the strip path
+        each probe's strip fills its row and one sum across strips gives
+        every rank every row."""
+        idx = [self._probe_index(px, py) for (px, py) in points]
+        if self.comm is None:
+            ii = torch.tensor([i for i, _ in idx], device=self.device)
+            jj = torch.tensor([j for _, j in idx], device=self.device)
+            vals = torch.stack([self.state.p[ii, jj], self.state.Tg[ii, jj]],
+                               1)
+        else:
+            X_loc = self._chunk_fn.X_loc
+            rows = []
+            for k, st in zip(self.comm.shards, self.state.strips):
+                r = torch.zeros((len(idx), 2), dtype=st.p.dtype,
+                                device=st.p.device)
+                for n, (i, j) in enumerate(idx):
+                    if i // X_loc == k:
+                        r[n, 0] = st.p[i % X_loc, j]
+                        r[n, 1] = st.Tg[i % X_loc, j]
+                rows.append(r)
+            vals = self.comm.all_sum(rows)[0]
+        return [(float(p_), float(t)) for p_, t in vals.cpu().numpy()]
+
+    def probe(self, x: float, y: float):
+        """Single monitor-point (p, T)."""
+        return self.probe_many([(x, y)])[0]
+
+
+def run_case(case: Case, max_cycles: int = None, verbose: bool = True,
+             on_cycle=None, **solver_kw):
+    """The whole run with the reference's exit semantics (JAX
+    runner.py:349-373); ``solver_kw`` go to ``Solver`` (its ``device``
+    defaults to the GPU)."""
+    solver = Solver(case, **solver_kw)
+    cycles = 0
+    while True:
+        diags, _ = solver.run_cycle()
+        cycles += 1
+        mrms, k = solver.max_rms(diags)
+        if verbose:
+            print(f"Cycle {cycles}: iter={solver.last_iter} "
+                  f"maxRMS[{k}]={mrms * 100:.5f}% "
+                  f"t={solver.global_time:.6f}s "
+                  f"({solver.stats.steps_per_sec:.1f} step/sec)")
+        if on_cycle is not None:
+            on_cycle(solver, diags)
+        if solver.stats.unstable:
+            print("ERROR: Computational instability (Tg < 0)")
+            break
+        if not solver.monitor_condition(diags):
+            break
+        if max_cycles is not None and cycles >= max_cycles:
+            break
+    return solver

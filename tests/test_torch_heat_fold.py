@@ -9,8 +9,10 @@ heat stage writes runs pass12's general body.  These tests hold that on
 the CPU, through the kernels' plain versions, on the two decks of
 tests/test_torch_kernel_path_heat.py (``reacting_rans_deck(48, 40,
 wall_bottom=True, adiabatic=False, with_step=True)`` and
-``combustor_deck(64, 256, with_step=True, adiabatic=False)``), each as a
-single domain and as ``LocalComm(2, "cpu")`` X strips:
+``combustor_deck(64, 256, with_step=True, adiabatic=False)``) and on the
+Euler cylinders with conducting walls (``cylinders_deck(64, 48)``,
+isAdiabaticWall=0: every tile general, lam_t the chunk-constant plane),
+each as a single domain and as ``LocalComm(2, "cpu")`` X strips:
 
 * (a) gfc_plain, then heat_plain before pass12_plain and again after it,
   on the same buffers: the two SrcAdd planes are bitwise equal, and
@@ -41,7 +43,8 @@ import numpy as np
 import pytest
 import torch
 
-from openhyperflow2d_torch.examples import combustor_deck, reacting_rans_deck
+from openhyperflow2d_torch.examples import (combustor_deck, cylinders_deck,
+                                            reacting_rans_deck)
 from openhyperflow2d_torch.ops.fused_step import (DISPATCH_FORMS, N_SCRATCH,
                                                   SCR_LAM_EFF, SCR_SRCADD_E,
                                                   TILE, carry_views, scan_dt)
@@ -54,7 +57,14 @@ DECKS = {
         48, 40, wall_bottom=True, adiabatic=False, with_step=True),
     "combustor_step_heat": lambda: combustor_deck(
         64, 256, with_step=True, adiabatic=False),
+    "euler_cylinders_heat": lambda: _conducting(cylinders_deck(64, 48)),
 }
+
+
+def _conducting(deck):
+    """An Euler deck with conjugate heat at its walls."""
+    deck.data["isAdiabaticWall"] = "0"
+    return deck
 LAYOUTS = ("single", "strips")
 TG = 21   # carry plane of Tg (CARRY_FIELDS)
 WARM = 4  # iterations before the one checked, so that the walls conduct

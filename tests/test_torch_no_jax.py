@@ -2,9 +2,10 @@
 interpreter where ``import jax`` and ``import openhyperflow2d_tpu`` fail,
 build the combustor and the walls+step+heat combustor with the port alone,
 run 3 eager iterations of each on the CPU, import the multi-device and
-microbenchmark modules, run 3 iterations of the combustor through the eager
-strip chunk in two strips (``LocalComm(2)``), and check that no module of
-jax, jaxlib or the JAX package was loaded.  This is what lets
+microbenchmark modules, the CLI, the output writers and the checkpoint,
+run 3 iterations of the combustor through the eager strip chunk in two
+strips (``LocalComm(2)``), and check that no module of jax, jaxlib or the
+JAX package was loaded.  This is what lets
 chip_smoke.py run on a machine that has torch and no jax."""
 
 import json
@@ -28,6 +29,11 @@ from openhyperflow2d_torch.solver.runner import Solver
 import openhyperflow2d_torch.bench.microbench
 import openhyperflow2d_torch.parallel.multihost
 import openhyperflow2d_torch.parallel.shard_step
+import openhyperflow2d_torch.io_out.host
+import openhyperflow2d_torch.io_out.tecplot
+import openhyperflow2d_torch.postproc.outcfd
+import openhyperflow2d_torch.solver.checkpoint
+import openhyperflow2d_torch.cli
 from openhyperflow2d_torch.parallel.comm import LocalComm
 out = {}
 for name, deck in (("combustor", combustor_deck(32, 32)),
