@@ -1,4 +1,4 @@
-"""Per-node physics: EOS, fluxes, k-eps turbulence, chemistry.
+"""Per-node physics: EOS, fluxes, turbulence closures, chemistry.
 
 Counterpart of ``openhyperflow2d_tpu.core.physics`` (``FillNode2D``,
 ``TurbModRANS2D`` and ``CalcChemicalReactions`` of the reference,
@@ -6,11 +6,12 @@ hyper_flow_node.hpp:374-957, deeps2d_core.cpp:4697-4780) on torch tensors.
 Every per-node branch is a ``torch.where`` mask, with the operation order of
 the JAX version kept so float64 results agree to rounding.
 
-Ported closures: standard k-eps (``TEM_k_eps_Std``) with its wall
-treatment, and the conjugate wall-heat stage of non-adiabatic walls
-(``calc_heat_on_wall_sources``).  The other closures are not ported yet;
-``check_supported`` (solver/runner.py) refuses such cases before anything
-runs.
+Every closure of the JAX package runs here on flat uniform meshes: the
+Prandtl family, the k-eps variants, Spalart-Allmaras and Smagorinsky
+(``_turb_mod_rans``); so does the conjugate wall-heat stage of
+non-adiabatic walls (``calc_heat_on_wall_sources``).  The axisymmetric
+add-ons are not ported; ``check_supported`` (solver/runner.py) refuses
+such cases before anything runs.
 """
 
 from __future__ import annotations
@@ -237,100 +238,244 @@ def fill_node(state: SolverState, meta: GridMeta, params: SolverParams,
         mu_t=sel(mu_t, state.mu_t), lam_t=sel(lam_t, state.lam_t))
 
 
+def _ipow(x, n: int):
+    """x ** n for a positive integer n as JAX lowers it (lax.integer_pow:
+    square-and-multiply, x ** 3 = x * x^2, x ** 6 = x^2 * (x^2)^2), so the
+    float bits follow the JAX package's."""
+    acc = None
+    while n > 0:
+        if n & 1:
+            acc = x if acc is None else acc * x
+        n >>= 1
+        if n:
+            x = x * x
+    return acc
+
+
 def _turb_mod_rans(state, meta, p, s, U, V, a_l, b_l, f_l, src, mu_t, lam_t,
                    is_mu_t, is_init, ctx: StaticCtx):
-    """TurbModRANS2D (hyper_flow_node.hpp:601-957), standard k-eps
-    (hpp:640-820) with its wall treatment.
+    """TurbModRANS2D (hyper_flow_node.hpp:601-957) over the grid, every
+    closure of the JAX package (physics.py:299-542): the Prandtl family
+    (Prandtl, van Driest, Escudier, Klebanoff), k-eps (standard, Chien,
+    JL, LSY, RNG), Spalart-Allmaras and Smagorinsky on the uniform mesh.
 
     Mutates the plane lists (s, a_l, b_l, f_l, src) for the turbulence
-    equations; returns (mu_t, lam_t).
+    equations; returns (mu_t, lam_t).  The families are selected
+    statically by ``p.models`` and per node by the exclusive masks
+    m_prandtl / m_keps / m_sa / m_smag; a ``tem`` no branch names takes the
+    standard constants.
     """
-    unported = [m for m in p.models if m != "keps"]
-    if unported or ("keps" in p.models and p.tem != fl.TEM_k_eps_Std):
+    if p.ft != fl.FT_FLAT:
         raise NotImplementedError(
-            f"turbulence closures {unported or [p.tem]} are not ported; "
-            f"only standard k-eps (TurbExtModel={fl.TEM_k_eps_Std})")
-    if "keps" not in p.models:
-        return mu_t, lam_t
-
+            "the axisymmetric turbulence add-ons are not ported")
     rho = s[fl.i2d_Rho]
     rho_s = torch.where(rho != 0, rho, 1)
+    tem = p.tem
     l_base = ctx.l_base
-    m_keps = ctx.m_keps
 
-    grad_mag = torch.maximum(torch.abs(state.dUdy), torch.abs(state.dVdx))
-    Sk = s[fl.i2d_k]
-    Se = s[fl.i2d_eps]
-    tmp1 = state.dUdy + state.dVdx
-    tmp3 = state.dUdx * state.dUdx + state.dVdy * state.dVdy
-    mu_t_ke = torch.where(mu_t == 0, rho * l_base * l_base * grad_mag, mu_t)
-    G = mu_t_ke * (tmp1 * tmp1 + 2.0 * tmp3)
+    has_prandtl = "prandtl" in p.models
+    has_keps = "keps" in p.models
+    has_sa = "sa" in p.models
+    has_smag = "smag" in p.models
+    if has_prandtl or has_keps or has_sa or has_smag:
+        grad_mag = torch.maximum(torch.abs(state.dUdy), torch.abs(state.dVdx))
 
-    # standard closure: f1 = f2 = f_mu = 1, no low-Re terms
-    f_mu = torch.ones_like(rho)
-    L_k = torch.zeros_like(rho)
-    L_eps = torch.zeros_like(rho)
-    Mt = torch.zeros_like(rho)
-    C1eps, C2eps, C_mu = 1.44, 1.92, 0.09
-    sig_k, sig_eps = 1.0, 1.3
-    f1 = f2 = 1.0
-
-    w_mag = torch.sqrt(U * U + V * V + 1.e-30)
-    tmpI = TURB_INTENSITY * w_mag
-    k_init = 1.5 * tmpI * tmpI * rho
-    l_s = ctx.l_s
-
-    def eps_of_k(sk):
-        return (C_mu ** 0.75
-                * torch.clamp_min(_safe_div(sk, rho_s), 0.0) ** 1.5 / l_s)
-
-    if is_init:
-        Sk = wsel(m_keps, k_init, Sk)
-        Se = wsel(m_keps, eps_of_k(Sk), Se)
-        mu_t_new = torch.abs(C_mu * f_mu * _safe_div(Sk * Sk, Se))
-        mu_t_ke = torch.where(Se != 0, mu_t_new, mu_t_ke)
-
-    kconst = ctx.kconst
-    econst = ctx.econst
-    Sk = wsel(band(m_keps, kconst), k_init, Sk)
-    Se = wsel(band(m_keps, bor(econst, ctx.ewall)), eps_of_k(Sk), Se)
-
-    nu_t = torch.abs(C_mu * f_mu * _safe_div(Sk * Sk, Se))
-    mu_t_ke = wsel(band(is_mu_t, Se != 0), torch.minimum(nu_t, mu_t_ke),
-                   mu_t_ke)
-
-    if not is_init:
-        if p.fast_math:
-            mt_sk = mu_t_ke * (1.0 / sig_k)
-            mt_se = mu_t_ke * (1.0 / sig_eps)
+    # ---------------- Prandtl zero-equation family (612-638) --------------
+    if has_prandtl:
+        m_prandtl = ctx.m_prandtl
+        n_0 = ctx.n_0
+        if tem == fl.TEM_vanDriest:
+            l_p = n_0 * (1.0 - torch.exp(-state.y_plus / 26.0))
+        elif tem == fl.TEM_Escudier and p.delta_bl > 0:
+            l_p = torch.clamp_max(n_0, 0.09 * p.delta_bl)
+        elif tem == fl.TEM_Klebanoff and p.delta_bl > 0:
+            l_p = n_0 / torch.sqrt(
+                1.0 + 5.5 * _ipow(meta.l_min / p.delta_bl, 6))
         else:
-            mt_sk = mu_t_ke / sig_k
-            mt_se = mu_t_ke / sig_eps
-        rx_k = (state.mu + mt_sk) * state.dkdx
-        rx_e = (state.mu + mt_se) * state.depsdx
-        ry_k = (state.mu + mt_sk) * state.dkdy
-        ry_e = (state.mu + mt_se) * state.depsdy
-        a_l[fl.i2d_k] = wsel(m_keps, Sk * U - rx_k, a_l[fl.i2d_k])
-        a_l[fl.i2d_eps] = wsel(m_keps, Se * U - rx_e, a_l[fl.i2d_eps])
-        b_l[fl.i2d_k] = wsel(m_keps, Sk * V - ry_k, b_l[fl.i2d_k])
-        b_l[fl.i2d_eps] = wsel(m_keps, Se * V - ry_e, b_l[fl.i2d_eps])
-        src_k = wsel(band(Sk != 0, bnot(kconst)),
-                     G - Se * (1.0 + Mt) + L_k * rho, src[fl.i2d_k])
-        src_e = wsel(band(Sk != 0, bnot(econst)),
-                     C1eps * f1 * _safe_div(Se, Sk) * G
-                     - C2eps * f2 * _safe_div(Se * Se, Sk) + L_eps * rho,
-                     src[fl.i2d_eps])
-        src[fl.i2d_k] = wsel(m_keps, src_k, src[fl.i2d_k])
-        src[fl.i2d_eps] = wsel(m_keps, src_e, src[fl.i2d_eps])
-    else:
-        f_l[fl.i2d_k] = wsel(m_keps, 0.0, f_l[fl.i2d_k])
-        f_l[fl.i2d_eps] = wsel(m_keps, 0.0, f_l[fl.i2d_eps])
-        src[fl.i2d_k] = wsel(m_keps, 0.0, src[fl.i2d_k])
-        src[fl.i2d_eps] = wsel(m_keps, 0.0, src[fl.i2d_eps])
+            l_p = n_0
+        mu_t = wsel(m_prandtl, rho * l_p * l_p * grad_mag, mu_t)
+        lam_t = wsel(m_prandtl, mu_t * state.CP, lam_t)
 
-    s[fl.i2d_k] = wsel(m_keps, Sk, s[fl.i2d_k])
-    s[fl.i2d_eps] = wsel(m_keps, Se, s[fl.i2d_eps])
-    mu_t = wsel(m_keps, mu_t_ke, mu_t)
+    # ---------------- k-eps family (640-820) -------------------------------
+    if has_keps:
+        m_keps = ctx.m_keps
+        Sk = s[fl.i2d_k]
+        Se = s[fl.i2d_eps]
+        tmp1 = state.dUdy + state.dVdx
+        tmp2 = rho * l_base
+        tmp3 = state.dUdx * state.dUdx + state.dVdy * state.dVdy
+        mu_t_ke = torch.where(mu_t == 0, rho * l_base * l_base * grad_mag,
+                              mu_t)
+        G = mu_t_ke * (tmp1 * tmp1 + 2.0 * tmp3)
+        Rt = torch.where((Se != 0) & (state.mu != 0),
+                         _safe_div(Sk * Sk,
+                                   Se * torch.where(state.mu != 0, state.mu,
+                                                    1)),
+                         0.0)
+
+        f1 = 1.0
+        f2 = 1.0
+        f_mu = torch.ones_like(rho)
+        L_k = torch.zeros_like(rho)
+        L_eps = torch.zeros_like(rho)
+        Mt = torch.zeros_like(rho)
+        C1eps, C2eps, C_mu = 1.44, 1.92, 0.09
+        sig_k, sig_eps = 1.0, 1.3
+        if tem == fl.TEM_k_eps_Chien:
+            C1eps, C2eps = 1.35, 1.8
+            f2 = 1.0 - 0.4 / 1.8 * torch.exp(-(Rt * Rt) / 36.0)
+            f_mu = 1.0 - torch.exp(-0.0115 * state.y_plus)
+            tmp2_s = torch.where(tmp2 != 0, tmp2, 1)
+            L_k = -2.0 * state.mu * Sk / (tmp2_s * tmp2_s)
+            L_eps = (-2.0 * state.mu * Se / (tmp2_s * tmp2_s)
+                     * torch.exp(-state.y_plus / 2.0))
+            k_cpcv = _safe_div(state.CP, state.CP - state.R, 2.0)
+            Mt = 1.5 * _safe_div(Sk, k_cpcv * state.p)
+        elif tem == fl.TEM_k_eps_JL:
+            f_mu = torch.exp(-2.5 / (1.0 + Rt / 50.0))
+        elif tem == fl.TEM_k_eps_LSY:
+            f_mu = torch.exp(-3.4 / (1.0 + Rt / 50.0) / (1.0 + Rt / 50.0))
+        elif tem == fl.TEM_k_eps_RNG:
+            nu_0 = 4.38
+            nu_r = torch.where(Se != 0.0,
+                               torch.sqrt(torch.clamp_min(G, 0.0))
+                               * _safe_div(Sk, Se), 0.0)
+            C_mu = 0.0845
+            C1eps = 1.42
+            C2eps = (1.68 + C_mu * _ipow(nu_r, 3) * (1.0 - nu_r / nu_0)
+                     / (1.0 + 0.012 * _ipow(nu_r, 3)))
+            sig_k = sig_eps = 0.7194
+
+        w_mag = torch.sqrt(U * U + V * V + 1.e-30)
+        tmpI = TURB_INTENSITY * w_mag
+        k_init = 1.5 * tmpI * tmpI * rho
+        l_s = ctx.l_s
+
+        def eps_of_k(sk):
+            return (C_mu ** 0.75
+                    * torch.clamp_min(_safe_div(sk, rho_s), 0.0) ** 1.5 / l_s)
+
+        if is_init:
+            Sk = wsel(m_keps, k_init, Sk)
+            Se = wsel(m_keps, eps_of_k(Sk), Se)
+            mu_t_new = torch.abs(C_mu * f_mu * _safe_div(Sk * Sk, Se))
+            mu_t_ke = torch.where(Se != 0, mu_t_new, mu_t_ke)
+
+        kconst = ctx.kconst
+        econst = ctx.econst
+        Sk = wsel(band(m_keps, kconst), k_init, Sk)
+        Se = wsel(band(m_keps, bor(econst, ctx.ewall)), eps_of_k(Sk), Se)
+
+        nu_t = torch.abs(C_mu * f_mu * _safe_div(Sk * Sk, Se))
+        mu_t_ke = wsel(band(is_mu_t, Se != 0), torch.minimum(nu_t, mu_t_ke),
+                       mu_t_ke)
+
+        if not is_init:
+            if p.fast_math:
+                mt_sk = mu_t_ke * (1.0 / sig_k)
+                mt_se = mu_t_ke * (1.0 / sig_eps)
+            else:
+                mt_sk = mu_t_ke / sig_k
+                mt_se = mu_t_ke / sig_eps
+            rx_k = (state.mu + mt_sk) * state.dkdx
+            rx_e = (state.mu + mt_se) * state.depsdx
+            ry_k = (state.mu + mt_sk) * state.dkdy
+            ry_e = (state.mu + mt_se) * state.depsdy
+            a_l[fl.i2d_k] = wsel(m_keps, Sk * U - rx_k, a_l[fl.i2d_k])
+            a_l[fl.i2d_eps] = wsel(m_keps, Se * U - rx_e, a_l[fl.i2d_eps])
+            b_l[fl.i2d_k] = wsel(m_keps, Sk * V - ry_k, b_l[fl.i2d_k])
+            b_l[fl.i2d_eps] = wsel(m_keps, Se * V - ry_e, b_l[fl.i2d_eps])
+            src_k = wsel(band(Sk != 0, bnot(kconst)),
+                         G - Se * (1.0 + Mt) + L_k * rho, src[fl.i2d_k])
+            src_e = wsel(band(Sk != 0, bnot(econst)),
+                         C1eps * f1 * _safe_div(Se, Sk) * G
+                         - C2eps * f2 * _safe_div(Se * Se, Sk)
+                         + L_eps * rho,
+                         src[fl.i2d_eps])
+            src[fl.i2d_k] = wsel(m_keps, src_k, src[fl.i2d_k])
+            src[fl.i2d_eps] = wsel(m_keps, src_e, src[fl.i2d_eps])
+        else:
+            f_l[fl.i2d_k] = wsel(m_keps, 0.0, f_l[fl.i2d_k])
+            f_l[fl.i2d_eps] = wsel(m_keps, 0.0, f_l[fl.i2d_eps])
+            src[fl.i2d_k] = wsel(m_keps, 0.0, src[fl.i2d_k])
+            src[fl.i2d_eps] = wsel(m_keps, 0.0, src[fl.i2d_eps])
+
+        s[fl.i2d_k] = wsel(m_keps, Sk, s[fl.i2d_k])
+        s[fl.i2d_eps] = wsel(m_keps, Se, s[fl.i2d_eps])
+        mu_t = wsel(m_keps, mu_t_ke, mu_t)
+
+    # ---------------- Spalart-Allmaras (822-917) ---------------------------
+    if has_sa:
+        m_sa = ctx.m_sa
+        Snu = s[fl.i2d_nu_t]
+        wall = ctx.sa_bc
+        fc = ctx.fc
+        nu = state.mu / rho_s
+        if is_init:
+            Snu_new = nu / 100.0
+            full = False
+        else:
+            full = band(bnot(wall), bnot(fc))
+            Snu_new = wsel(wall, 0.0, wsel(fc, nu * TURB_INTENSITY, Snu))
+        Cb1, Cb2, sig_sa = 0.1355, 0.622, 2.0 / 3.0
+        kk = 0.41
+        Cw1 = Cb1 / (kk * kk) + (1 + Cb2) / sig_sa
+        Cw2, Cw3, Cv1 = 0.3, 2.0, 7.1
+        Ct2, Ct4, C5 = 2.0, 0.5, 3.5
+        k_cpcv = _safe_div(state.CP, state.CP - state.R, 2.0)
+        a_sound2 = k_cpcv * state.R * state.Tg
+        ksi = _safe_div(Snu, nu)
+        fv1_full = _ipow(ksi, 3) / (_ipow(ksi, 3) + Cv1 ** 3)
+        fv2 = 1.0 - ksi / (1.0 + ksi * fv1_full)
+        Wxy = 0.5 * (state.dVdx - state.dUdy)
+        Omega = torch.sqrt(2.0 * Wxy * Wxy)
+        l_min_s = ctx.l_min_s
+        S_hat = Omega + Snu / (kk * kk * l_min_s * l_min_s) * fv2
+        S_hat = torch.maximum(S_hat, 0.3 * Omega)
+        S_hat_s = torch.where(S_hat != 0, S_hat, 1)
+        r_sa = torch.clamp_max(
+            Snu / (S_hat_s * kk * kk * l_min_s * l_min_s), 10.0)
+        g_sa = r_sa + Cw2 * (_ipow(r_sa, 6) - r_sa)
+        g_s = torch.where(g_sa != 0, g_sa, 1)
+        fw = g_sa * ((1.0 + Cw3 ** 6) / (_ipow(g_s, 6) + Cw3 ** 6)) \
+            ** (1.0 / 6.0)
+        ft2 = Ct2 * torch.exp(-Ct4 * ksi * ksi)
+        nu_hat = _safe_div(mu_t, rho_s * torch.where(fv1_full != 0,
+                                                     fv1_full, 1))
+        div_nu = state.dkdx + state.dkdy
+        rx_nu = (nu + Snu) * state.dkdx / sig_sa
+        ry_nu = (nu + Snu) * state.dkdy / sig_sa
+        src_nu = (Cb1 * (1.0 - ft2) * S_hat * Snu
+                  - (Cw1 * fw - Cb1 / (kk * kk) * ft2)
+                  * _ipow(Snu / l_min_s, 2)
+                  + (Cb2 * div_nu * div_nu) / sig_sa
+                  - C5 * nu_hat * nu_hat
+                  * _safe_div(state.dUdy * state.dVdx, a_sound2))
+        if not is_init:
+            on = band(m_sa, full)
+            a_l[fl.i2d_nu_t] = wsel(on, Snu * U - rx_nu, a_l[fl.i2d_nu_t])
+            b_l[fl.i2d_nu_t] = wsel(on, Snu * V - ry_nu, b_l[fl.i2d_nu_t])
+            src[fl.i2d_nu_t] = wsel(on, src_nu, src[fl.i2d_nu_t])
+        else:
+            f_l[fl.i2d_nu_t] = wsel(m_sa, 0.0, f_l[fl.i2d_nu_t])
+            src[fl.i2d_nu_t] = wsel(m_sa, 0.0, src[fl.i2d_nu_t])
+        s[fl.i2d_nu_t] = wsel(m_sa, Snu_new, s[fl.i2d_nu_t])
+        fv1_eff = wsel(full, fv1_full, 1.0)
+        mu_t_sa = torch.clamp_min(rho * s[fl.i2d_nu_t] * fv1_eff, 0.0)
+        mu_t = wsel(band(m_sa, is_mu_t), mu_t_sa, mu_t)
+        lam_t = wsel(band(m_sa, is_mu_t), mu_t * state.CP, lam_t)
+
+    # ---------------- Smagorinsky LES (927-956), uniform mesh --------------
+    if has_smag:
+        m_smag = ctx.m_smag
+        Cs = 0.1
+        delta_les = (p.dx * p.dy) ** 0.5
+        Wxy_s = 0.5 * (state.dVdx - state.dUdy)
+        Omega_s = torch.sqrt(2.0 * Wxy_s * Wxy_s)
+        mu_t_sm = torch.clamp_min(rho * (Cs * delta_les) ** 2 * Omega_s, 0.0)
+        mu_t = wsel(band(m_smag, is_mu_t), mu_t_sm, mu_t)
+        lam_t = wsel(band(m_smag, is_mu_t), mu_t * state.CP, lam_t)
+
     return mu_t, lam_t
 
 

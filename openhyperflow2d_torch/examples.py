@@ -257,6 +257,23 @@ def channel_deck(nx: int = 64, ny: int = 64, u: float = 500.0,
     return parse_deck(text)
 
 
+def wall_channel_deck(nx: int, ny: int, turb_model: int,
+                      turb_ext_model: int, delta_bl: float = 0.2) -> Deck:
+    """An NS channel at 300 m/s with a no-slip bottom wall (Bound3), the
+    turbulence deck of the JAX package's tests/test_turbulence_models.py
+    (``_wall_channel``) at any size: ``turb_model`` is the deck's
+    TurbulenceModel (2 the Prandtl family, 3 Spalart-Allmaras, 4 k-eps, 5
+    Smagorinsky), ``turb_ext_model`` its TurbExtModel (the closure),
+    ``delta_bl`` the boundary-layer thickness Escudier's and Klebanoff's
+    lengths read."""
+    d = channel_deck(nx=nx, ny=ny, u=300.0, problem_type=1,
+                     turb_model=turb_model, turb_ext_model=turb_ext_model,
+                     cfl=0.05, beta=0.95)
+    d.data["Contour1.Bound3.Cond"] = "NT_WNS_2D"
+    d.data["delta_bl"] = str(delta_bl)
+    return d
+
+
 def freestream_deck(problem_type: int = 0, u: float = 500.0, v: float = 0.0,
                     nx: int = 16, ny: int = 16) -> Deck:
     """Uniform stream with FC boundaries on all four sides."""

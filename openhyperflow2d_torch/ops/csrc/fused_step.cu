@@ -4,6 +4,9 @@
 //                        Zeldovich chemistry, one thread per node
 //   gfc_euler_kernel     the same stage on Euler decks (ProblemType=0):
 //     <BODY>             the general body's Euler form on every tile
+//   gfc_closure_kernel   the same stage on NS decks whose turbulence
+//     <BODY>             closure is not standard k-eps (the Prandtl
+//                        family, the k-eps variants, SA, Smagorinsky)
 //   pass12_kernel<BODY>  pass 1 (blending update) + pass 2 (residual,
 //                        blending factor, commit), one thread per node;
 //                        on decks with non-adiabatic walls the general
@@ -122,6 +125,18 @@
 // (core/step.pass12 has no SM_NS branch), so pass12_kernel<general> (and
 // <dual>) run Euler decks as they are.
 //
+// The other turbulence closures (ops/fused_step.py is_closure) run gfc as
+// gfc_closure_kernel: gfc_node's CLOSURE flag at compile time swaps the
+// standard k-eps code for `closures` below, and the kernel alone takes
+// ClosureConsts.  Its bytes a node are the standard bodies' (244 spec,
+// 300 general) and the y+ plane's 4 where the closure reads y+; SA,
+// Smagorinsky and the Prandtl family have no spec tiles (spec_supported).
+// At 80 registers its general body spills 56 bytes a thread; with room
+// for 96 registers at 2 CTAs an SM it ran 1.15-1.46x slower on an H100
+// (PERF.md), so it keeps the 3-CTA budget and the spill.
+// pass12 runs these decks as it runs the standard ones: the closures
+// change only what gfc writes.
+//
 // Jacobi semantics: gfc_kernel reads the carry `cin` at +-1 and writes new
 // primitives into the other carry buffer `cout`; pass12_kernel reads the
 // scratch at +-1 and writes S and beta into `cout`.  The caller swaps the
@@ -152,7 +167,8 @@ struct Consts {
     float min_dxdy;        // float(min(dx, dy))
     float cfl, beta0, sig_w, sig_f;
     float k0, k0_div, tf;  // K0, max(K0, 1e-30), ignition temperature
-    float c_mu075;         // 0.09 ** 0.75
+    float c_mu075;         // C_mu ** 0.75 of the k-eps form (0.09, or
+                           // 0.0845 for RNG; ClosureConsts::keps_form)
     float hu[4];           // heats of formation (fuel, ox, cp, air)
     int X, Y, nby;         // grid extent, tiles along j
     int has_walls, fast_math, bff, alt_rms, serial_rms, zeldovich;
@@ -166,6 +182,25 @@ struct Consts {
     int euler;             // an Euler deck: hf2d_gfc launches
                            // gfc_euler_kernel (pass12 has no Euler form)
 };
+
+// The closures' constants: the host passes every entry one struct, Consts
+// followed by these fields (ops/fused_step.py KernelConsts); only
+// gfc_closure_kernel takes them, so the other kernels keep their Consts,
+// code and registers.
+struct ClosureConsts : Consts {
+    int closure;           // an NS deck whose closure is not standard
+                           // k-eps: hf2d_gfc launches gfc_closure_kernel
+    int models;            // MODEL_* bits of the families of p.models
+    int prandtl_form;      // the Prandtl family's length (TEM_*: Prandtl,
+                           // van Driest, or Escudier/Klebanoff with
+                           // delta_bl > 0)
+    int keps_form;         // the k-eps variant (TEM_*; else standard)
+    float delta_bl;        // float(delta_bl)
+    float esc_l;           // float(0.09 * delta_bl): Escudier's length cap
+    float smag_cs2;        // float((0.1 * sqrt(dx * dy)) ** 2)
+};
+static_assert(sizeof(ClosureConsts) == sizeof(Consts) + 7 * 4,
+              "ClosureConsts is Consts and its fields, unpadded");
 
 // kernel bodies (ops/fused_step.py _BODY_CODE): GENERAL is the general
 // body on direct global loads, STAGED the same body on staged windows
@@ -596,9 +631,208 @@ __device__ __forceinline__ float mixture(const float* __restrict__ chemf,
 }
 
 // ---------------------------------------------------------------------------
+// The turbulence closures of gfc_closure_kernel: core/physics._turb_mod_rans
+// for one node (TurbModRANS2D, hyper_flow_node.hpp:601-957; the JAX
+// package's physics.py:299-542), on an NS deck whose closure is not
+// standard k-eps (ops/fused_step.py is_closure).  The families run where
+// the case has them (Consts::models, p.models) and each writes only at its
+// own nodes (the exclusive masks m_prandtl, m_keps, m_sa, m_smag), in
+// JAX's order: Prandtl, k-eps, SA, Smagorinsky.  Every expression keeps
+// JAX's operation order, its Python constants folded in double and rounded
+// once (F), and its integer powers in lax.integer_pow's form (x^3 = x x^2,
+// x^6 = x^2 (x^2)^2).
+// ---------------------------------------------------------------------------
+constexpr int TEM_VAN_DRIEST = 1, TEM_ESCUDIER = 2, TEM_KLEBANOFF = 3;
+constexpr int TEM_CHIEN = 5, TEM_JL = 6, TEM_LSY = 7, TEM_RNG = 8;
+constexpr int MODEL_PRANDTL = 1, MODEL_KEPS = 2, MODEL_SA = 4,
+              MODEL_SMAG = 8;   // ops/fused_step.py MODEL_BITS
+
+// What the closures read at the node: its state after the Dirichlet
+// enforcement of U and V, the carry's p and Tg (the state before this
+// fill, as Chien's Mt and SA's sound speed read them), its gradients, and
+// the meta planes l_min and y+.
+struct NodeFlow {
+    float rho, rho_s, U, V, mu, CP, R, k_cpcv, p, Tg;
+    float dUdx, dUdy, dVdx, dVdy, dkdx, dkdy, depsdx, depsdy;
+    float l_min, y_plus;
+    bool is_mu_t, fc;
+};
+
+// The fluxes and sources of equations 7 and 8 (0 where no closure writes
+// them, as the expanded state's zeros).
+struct TurbFlux {
+    float a7, a8, b7, b8, src7, src8;
+};
+
+__device__ __forceinline__ float safe_div(float a, float b) {
+    return b != 0.f ? a / b : 0.f;
+}
+
+// Updates s[7], s[8] and mu_t; fills `t`.
+template <bool SPEC>
+__device__ __forceinline__ void closures(const ClosureConsts& c,
+                                         const uint32_t* w,
+                                         const NodeFlow& f, float* s,
+                                         float& mu_t, TurbFlux& t) {
+    const bool m_prandtl = MASK(M_PRANDTL, false);
+    const bool m_keps = MASK(M_KEPS, true);
+    const bool m_sa = MASK(M_SA, false);
+    const bool m_smag = MASK(M_SMAG, false);
+    const bool kconst = MASK(KCONST, false);
+    const bool econst = MASK(ECONST, false);
+    const bool ewall = MASK(EWALL, false);
+    const bool sa_bc = MASK(SA_BC, false);
+    const float rho = f.rho, U = f.U, V = f.V, mu = f.mu;
+    const float grad_mag = fmaxf(fabsf(f.dUdy), fabsf(f.dVdx));
+
+    // ---------------- Prandtl zero-equation family (612-638) --------------
+    if ((c.models & MODEL_PRANDTL) && m_prandtl) {
+        const float n_0 = f.l_min * F(0.41);
+        float l_p = n_0;
+        if (c.prandtl_form == TEM_VAN_DRIEST) {
+            l_p = n_0 * (F(1.0) - expf(-f.y_plus / F(26.0)));
+        } else if (c.prandtl_form == TEM_ESCUDIER) {
+            l_p = fminf(n_0, c.esc_l);
+        } else if (c.prandtl_form == TEM_KLEBANOFF) {
+            const float q = f.l_min / c.delta_bl;
+            const float q2 = q * q;
+            l_p = n_0 / sqrtf(F(1.0) + F(5.5) * (q2 * (q2 * q2)));
+        }
+        mu_t = rho * l_p * l_p * grad_mag;
+    }
+
+    // ---------------- k-eps family (640-820) -------------------------------
+    if ((c.models & MODEL_KEPS) && m_keps) {
+        float Sk = s[7], Se = s[8];
+        const float l_base = fmaxf(f.l_min, c.min_dxdy) * F(0.41);
+        const float l_s = l_base != 0.f ? l_base : 1.f;
+        const float tmp1 = f.dUdy + f.dVdx;
+        const float tmp2 = rho * l_base;
+        const float tmp3 = f.dUdx * f.dUdx + f.dVdy * f.dVdy;
+        float mu_t_ke = mu_t == 0.f ? rho * l_base * l_base * grad_mag : mu_t;
+        const float G = mu_t_ke * (tmp1 * tmp1 + F(2.0) * tmp3);
+        const float Rt = (Se != 0.f && mu != 0.f) ? safe_div(Sk * Sk, Se * mu)
+                                                  : 0.f;
+        float f2 = F(1.0), f_mu = F(1.0), L_k = 0.f, L_eps = 0.f, Mt = 0.f;
+        float C1eps = F(1.44), C2eps = F(1.92), C_mu = F(0.09);
+        float sig_k = F(1.0), sig_eps = F(1.3);
+        float r_sig_k = F(1.0 / 1.0), r_sig_eps = F(1.0 / 1.3);
+        if (c.keps_form == TEM_CHIEN) {
+            C1eps = F(1.35);
+            C2eps = F(1.8);
+            f2 = F(1.0) - F(0.4 / 1.8) * expf(-(Rt * Rt) / F(36.0));
+            f_mu = F(1.0) - expf(F(-0.0115) * f.y_plus);
+            const float tmp2_s = tmp2 != 0.f ? tmp2 : 1.f;
+            L_k = F(-2.0) * mu * Sk / (tmp2_s * tmp2_s);
+            L_eps = F(-2.0) * mu * Se / (tmp2_s * tmp2_s)
+                    * expf(-f.y_plus / F(2.0));
+            Mt = F(1.5) * safe_div(Sk, f.k_cpcv * f.p);
+        } else if (c.keps_form == TEM_JL) {
+            f_mu = expf(F(-2.5) / (F(1.0) + Rt / F(50.0)));
+        } else if (c.keps_form == TEM_LSY) {
+            f_mu = expf(F(-3.4) / (F(1.0) + Rt / F(50.0))
+                        / (F(1.0) + Rt / F(50.0)));
+        } else if (c.keps_form == TEM_RNG) {
+            const float nu_r = Se != 0.f
+                ? sqrtf(fmaxf(G, 0.f)) * safe_div(Sk, Se) : 0.f;
+            const float nu_r3 = nu_r * (nu_r * nu_r);
+            C_mu = F(0.0845);
+            C1eps = F(1.42);
+            C2eps = F(1.68) + C_mu * nu_r3 * (F(1.0) - nu_r / F(4.38))
+                              / (F(1.0) + F(0.012) * nu_r3);
+            sig_k = sig_eps = F(0.7194);
+            r_sig_k = r_sig_eps = F(1.0 / 0.7194);
+        }
+        const float w_mag = sqrtf(U * U + V * V + F(1.e-30));
+        const float tmpI = F(0.005) * w_mag;
+        const float k_init = F(1.5) * tmpI * tmpI * rho;
+        if (kconst) Sk = k_init;
+        if (econst || ewall)   // c_mu075: C_mu ** 0.75 of the variant
+            Se = c.c_mu075 * powf(fmaxf(Sk / f.rho_s, 0.f), F(1.5)) / l_s;
+        const float nu_t = fabsf(C_mu * f_mu * safe_div(Sk * Sk, Se));
+        if (f.is_mu_t && Se != 0.f) mu_t_ke = fminf(nu_t, mu_t_ke);
+        const float mt_sk = c.fast_math ? mu_t_ke * r_sig_k : mu_t_ke / sig_k;
+        const float mt_se = c.fast_math ? mu_t_ke * r_sig_eps
+                                        : mu_t_ke / sig_eps;
+        t.a7 = Sk * U - (mu + mt_sk) * f.dkdx;
+        t.a8 = Se * U - (mu + mt_se) * f.depsdx;
+        t.b7 = Sk * V - (mu + mt_sk) * f.dkdy;
+        t.b8 = Se * V - (mu + mt_se) * f.depsdy;
+        if (Sk != 0.f && !kconst) t.src7 = G - Se * (F(1.0) + Mt) + L_k * rho;
+        if (Sk != 0.f && !econst)
+            t.src8 = C1eps * (Se / Sk) * G - C2eps * f2 * (Se * Se / Sk)
+                     + L_eps * rho;
+        s[7] = Sk;
+        s[8] = Se;
+        mu_t = mu_t_ke;
+    }
+
+    // ---------------- Spalart-Allmaras (822-917) ---------------------------
+    if ((c.models & MODEL_SA) && m_sa) {
+        const float Snu = s[7];
+        const bool full = !sa_bc && !f.fc;
+        const float nu = mu / f.rho_s;
+        const float Snu_new = sa_bc ? 0.f : f.fc ? nu * F(0.005) : Snu;
+        const float a_sound2 = f.k_cpcv * f.R * f.Tg;
+        const float ksi = safe_div(Snu, nu);
+        const float ksi3 = ksi * (ksi * ksi);
+        const float fv1_full = ksi3 / (ksi3 + F(7.1 * 7.1 * 7.1));
+        const float fv2 = F(1.0) - ksi / (F(1.0) + ksi * fv1_full);
+        const float Wxy = F(0.5) * (f.dVdx - f.dUdy);
+        const float Omega = sqrtf(F(2.0) * Wxy * Wxy);
+        const float lms = f.l_min != 0.f ? f.l_min : 1.f;
+        float S_hat = Omega + Snu / (F(0.41 * 0.41) * lms * lms) * fv2;
+        S_hat = fmaxf(S_hat, F(0.3) * Omega);
+        const float S_hat_s = S_hat != 0.f ? S_hat : 1.f;
+        const float r_sa = fminf(Snu / (S_hat_s * F(0.41) * F(0.41) * lms
+                                        * lms),
+                                 F(10.0));
+        const float r2 = r_sa * r_sa;
+        const float g_sa = r_sa + F(0.3) * (r2 * (r2 * r2) - r_sa);
+        const float g_s = g_sa != 0.f ? g_sa : 1.f;
+        const float g2 = g_s * g_s;
+        const float fw = g_sa * powf(F(65.0) / (g2 * (g2 * g2) + F(64.0)),
+                                     F(1.0 / 6.0));
+        const float ft2 = F(2.0) * expf(F(-0.5) * ksi * ksi);
+        const float nu_hat = safe_div(
+            mu_t, f.rho_s * (fv1_full != 0.f ? fv1_full : 1.f));
+        const float div_nu = f.dkdx + f.dkdy;
+        const float q = Snu / lms;
+        // Cb1 = 0.1355, Cb2 = 0.622, sig = 2/3, kappa = 0.41,
+        // Cw1 = Cb1 / kappa^2 + (1 + Cb2) / sig, C5 = 3.5
+        const float src_nu =
+            F(0.1355) * (F(1.0) - ft2) * S_hat * Snu
+            - (F(0.1355 / (0.41 * 0.41) + (1 + 0.622) / (2.0 / 3.0)) * fw
+               - F(0.1355 / (0.41 * 0.41)) * ft2) * (q * q)
+            + (F(0.622) * div_nu * div_nu) / F(2.0 / 3.0)
+            - F(3.5) * nu_hat * nu_hat * safe_div(f.dUdy * f.dVdx, a_sound2);
+        if (full) {
+            t.a7 = Snu * U - (nu + Snu) * f.dkdx / F(2.0 / 3.0);
+            t.b7 = Snu * V - (nu + Snu) * f.dkdy / F(2.0 / 3.0);
+            t.src7 = src_nu;
+        }
+        s[7] = Snu_new;
+        if (f.is_mu_t) mu_t = fmaxf(0.f, rho * s[7] * (full ? fv1_full : 1.f));
+    }
+
+    // ---------------- Smagorinsky LES (927-956), uniform mesh --------------
+    if ((c.models & MODEL_SMAG) && m_smag && f.is_mu_t) {
+        const float Wxy = F(0.5) * (f.dVdx - f.dUdy);
+        const float Omega = sqrtf(F(2.0) * Wxy * Wxy);
+        mu_t = fmaxf(0.f, rho * c.smag_cs2 * Omega);   // (Cs delta)^2
+    }
+}
+
+// ---------------------------------------------------------------------------
 // gfc: core/step.gfc for one node (gradients, fill_node with standard
 // k-eps, the per-node dt limit, chemistry).  Returns the Tg<0 and
 // frozen-dt-overrun flags of the node.
+//
+// CLOSURE is the form of the NS decks whose closure is not standard
+// k-eps: fill_node's turbulence is `closures` above, which reads l_min
+// and, where the closure reads it, y+ (META_Y_PLUS) from the meta planes.
+// A compile-time flag as EULER is: the standard k-eps bodies keep their
+// code, registers and 3-CTA budget.
 //
 // EULER is the form of the Euler decks (ProblemType=0, p.sm != SM_NS;
 // the TPU kernel's non-NS staging, pallas_step.py:405-414): no gradients
@@ -611,9 +845,9 @@ __device__ __forceinline__ float mixture(const float* __restrict__ chemf,
 // `src` reads the carry `cin` (through the node's collapse) and the meta
 // planes mf (aux), `w` holds the node's ctx words, `st` its neighbour
 // flags.
-template <bool SPEC, bool EULER, class Src>
+template <bool SPEC, bool EULER, bool CLOSURE, class C, class Src>
 __device__ __forceinline__ void gfc_node(
-        const Consts& c, const Src& src, const uint32_t* w,
+        const C& c, const Src& src, const uint32_t* w,
         const Stencil& st, float* __restrict__ cout,
         float* __restrict__ scr, const float* __restrict__ chemf,
         const int32_t* __restrict__ chemi,
@@ -728,6 +962,26 @@ __device__ __forceinline__ void gfc_node(
     float mu_t = mu_t0;
     const bool is_mu_t = fc || mu_t_iter;
 
+    float a7 = 0.f, a8 = 0.f, b7 = 0.f, b8 = 0.f, src7 = 0.f, src8 = 0.f;
+    if constexpr (CLOSURE) {
+        const bool y_plus_read =
+            ((c.models & MODEL_PRANDTL) && c.prandtl_form == TEM_VAN_DRIEST)
+            || ((c.models & MODEL_KEPS) && c.keps_form == TEM_CHIEN);
+        const NodeFlow f{rho, rho_s, U, V, mu, CP, R, k_cpcv,
+                         ld(CARRY_P, NB_C), ld(CARRY_TG, NB_C), dUdx, dUdy,
+                         dVdx, dVdy, dkdx, dkdy, depsdx, depsdy,
+                         src.aux(META_LMIN),
+                         y_plus_read ? src.aux(META_Y_PLUS) : 0.f,
+                         is_mu_t, fc};
+        TurbFlux t{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        closures<SPEC>(c, w, f, s, mu_t, t);
+        a7 = t.a7;
+        a8 = t.a8;
+        b7 = t.b7;
+        b8 = t.b8;
+        src7 = t.src7;
+        src8 = t.src8;
+    } else {
     // standard k-eps (hpp:640-820): f1 = f2 = f_mu = 1, no low-Re terms
     const float grad_mag = fmaxf(fabsf(dUdy), fabsf(dVdx));
     float Sk = s[7], Se = s[8];
@@ -749,7 +1003,6 @@ __device__ __forceinline__ void gfc_node(
     const float mt_sk = mu_t_ke;  // mu_t_ke / sig_k with sig_k = 1
     const float mt_se = c.fast_math ? mu_t_ke * F(1.0 / 1.3)
                                     : mu_t_ke / F(1.3);
-    float a7 = 0.f, a8 = 0.f, b7 = 0.f, b8 = 0.f, src7 = 0.f, src8 = 0.f;
     if (!EULER && m_keps) {
         a7 = Sk * U - (mu + mt_sk) * dkdx;
         a8 = Se * U - (mu + mt_se) * depsdx;
@@ -762,6 +1015,7 @@ __device__ __forceinline__ void gfc_node(
         s[7] = Sk;
         s[8] = Se;
         mu_t = mu_t_ke;
+    }
     }
 
     // formation enthalpy sum (hpp:438-445)
@@ -1189,9 +1443,9 @@ __device__ __forceinline__ bool spec_tile(const int32_t* __restrict__ flags,
 }
 
 // One node of gfc on direct global loads.
-template <bool SPEC, bool EULER>
+template <bool SPEC, bool EULER, bool CLOSURE, class C>
 __device__ __forceinline__ void gfc_direct(
-        const Consts& c, const float* __restrict__ cin,
+        const C& c, const float* __restrict__ cin,
         float* __restrict__ cout, float* __restrict__ scr,
         const int8_t* __restrict__ idn, const float* __restrict__ mf,
         const int32_t* __restrict__ ctxw, const float* __restrict__ chemf,
@@ -1203,7 +1457,7 @@ __device__ __forceinline__ void gfc_direct(
     int8_t id4[4];
     load_ctx<SPEC>(w, ctxw, P, n);
     load_idn<SPEC>(id4, idn, P, n);
-    gfc_node<SPEC, EULER>(c, direct_src<SPEC>(c, cin, mf, w, P, i, j), w,
+    gfc_node<SPEC, EULER, CLOSURE>(c, direct_src<SPEC>(c, cin, mf, w, P, i, j), w,
                    make_stencil<SPEC>(id4), cout, scr, chemf, chemi, dt,
                    cfl_scen, mu_t_iter, uns, ovr);
 }
@@ -1267,10 +1521,11 @@ __device__ __forceinline__ void pass12_partials(const ArrayAcc& acc,
 }
 
 // A CTA of gfc over its tile; EULER: every tile runs the Euler form of the
-// general body (an Euler deck has no spec tiles, spec_supported).
-template <int BODY, bool EULER>
+// general body (an Euler deck has no spec tiles, spec_supported);
+// CLOSURE: every body runs the closures' form.
+template <int BODY, bool EULER, bool CLOSURE, class C>
 __device__ __forceinline__ void gfc_tile(
-        const Consts& c, const float* __restrict__ cin,
+        const C& c, const float* __restrict__ cin,
         float* __restrict__ cout, float* __restrict__ scr,
         const int8_t* __restrict__ idn, const float* __restrict__ mf,
         const int32_t* __restrict__ ctxw, const float* __restrict__ chemf,
@@ -1283,19 +1538,21 @@ __device__ __forceinline__ void gfc_tile(
     bool uns = false, ovr = false;
     if (i < c.X && j < c.Y) {
         if (!EULER && spec_tile<BODY>(flags, tile))
-            gfc_direct<true, false>(c, cin, cout, scr, idn, mf, ctxw, chemf,
-                                    chemi, *dtp, aux[1], aux[2] > F(0.5), i,
-                                    j, uns, ovr);
+            gfc_direct<true, false, CLOSURE>(c, cin, cout, scr, idn, mf,
+                                             ctxw, chemf, chemi, *dtp,
+                                             aux[1], aux[2] > F(0.5), i, j,
+                                             uns, ovr);
         else
-            gfc_direct<false, EULER>(c, cin, cout, scr, idn, mf, ctxw, chemf,
-                                     chemi, *dtp, aux[1], aux[2] > F(0.5), i,
-                                     j, uns, ovr);
+            gfc_direct<false, EULER, CLOSURE>(c, cin, cout, scr, idn, mf,
+                                              ctxw, chemf, chemi, *dtp,
+                                              aux[1], aux[2] > F(0.5), i, j,
+                                              uns, ovr);
     }
     gfc_partials(c, i, uns, ovr, tile, part_i);
 }
 
-#define HF2D_GFC_PARAMS                                                      \
-    const Consts c, const float* __restrict__ cin, float* __restrict__ cout, \
+#define HF2D_GFC_PARAMS(CONSTS)                                              \
+    const CONSTS c, const float* __restrict__ cin, float* __restrict__ cout, \
         float* __restrict__ scr, const int8_t* __restrict__ idn,            \
         const float* __restrict__ mf, const int32_t* __restrict__ ctxw,     \
         const float* __restrict__ chemf, const int32_t* __restrict__ chemi, \
@@ -1308,8 +1565,8 @@ __device__ __forceinline__ void gfc_tile(
 
 template <int BODY>
 __global__ void __launch_bounds__(CTA_THREADS)
-gfc_kernel(HF2D_GFC_PARAMS) {
-    gfc_tile<BODY, false>(HF2D_GFC_FORWARD);
+gfc_kernel(HF2D_GFC_PARAMS(Consts)) {
+    gfc_tile<BODY, false, false>(HF2D_GFC_FORWARD);
 }
 
 // The Euler decks' gfc (BODY_GENERAL or BODY_DUAL): the general body's
@@ -1317,8 +1574,19 @@ gfc_kernel(HF2D_GFC_PARAMS) {
 // their symbols, code and budgets.
 template <int BODY>
 __global__ void __launch_bounds__(CTA_THREADS)
-gfc_euler_kernel(HF2D_GFC_PARAMS) {
-    gfc_tile<BODY, true>(HF2D_GFC_FORWARD);
+gfc_euler_kernel(HF2D_GFC_PARAMS(Consts)) {
+    gfc_tile<BODY, true, false>(HF2D_GFC_FORWARD);
+}
+
+// The gfc of the NS decks whose closure is not standard k-eps
+// (BODY_GENERAL, BODY_SPEC or BODY_DUAL): every body in the closures' form
+// (the spec body only on decks with k-eps nodes, whose generic interior
+// runs the k-eps variant).  A kernel of its own, so the standard k-eps
+// kernels keep their symbols, code and budgets.
+template <int BODY>
+__global__ void __launch_bounds__(CTA_THREADS)
+gfc_closure_kernel(HF2D_GFC_PARAMS(ClosureConsts)) {
+    gfc_tile<BODY, false, true>(HF2D_GFC_FORWARD);
 }
 #undef HF2D_GFC_PARAMS
 #undef HF2D_GFC_FORWARD
@@ -1433,7 +1701,7 @@ gfc_window_kernel(const Consts c, const float* __restrict__ cin,
             uint32_t w[CTX_N_WORDS];
             int8_t id4[4];
             window_ctx<GfcPlanes>(w, id4, buf);
-            gfc_node<false, false>(c,
+            gfc_node<false, false, false>(c,
                             window_src<false, GfcPlanes>(c, buf, mf, w, P, i,
                                                          j),
                             w, make_stencil<false>(id4), cout, scr, chemf,
@@ -1580,7 +1848,8 @@ static const WindowKernel PASS12_WINDOW{
 // `body` is BODY_*: the staged body launches the window kernel on the
 // persistent grid, the others a CTA per tile; the dual body reads no tile
 // list (`tiles` may be null, `n_tiles` is every tile) and reads `flags`
-// (int32 per tile id, 1 = spec), which the others ignore.
+// (int32 per tile id, 1 = spec), which the others ignore.  `consts` points
+// to a ClosureConsts; every entry but hf2d_gfc reads its Consts part.
 // ---------------------------------------------------------------------------
 extern "C" {
 
@@ -1591,9 +1860,10 @@ int hf2d_gfc(int body, const void* consts, const void* cin, void* cout,
              const void* flags, void* part_i, void* stream) {
     if (n_tiles == 0) return 0;
     const Consts c = *static_cast<const Consts*>(consts);
+    const ClosureConsts cc = *static_cast<const ClosureConsts*>(consts);
     const dim3 block(TILE_Y, TILE_X);
     auto s = static_cast<cudaStream_t>(stream);
-    if (body == BODY_STAGED && !c.euler) {
+    if (body == BODY_STAGED && !c.euler && !cc.closure) {
         int ctas = 0;
         const int err = GFC_WINDOW.grid(&ctas, nullptr);
         if (err) return err;
@@ -1609,27 +1879,42 @@ int hf2d_gfc(int body, const void* consts, const void* cin, void* cout,
             static_cast<int32_t*>(part_i));
         return static_cast<int>(cudaGetLastError());
     }
-#define HF2D_GFC_ARGS                                                        \
-    c, static_cast<const float*>(cin), static_cast<float*>(cout),           \
+#define HF2D_GFC_ARGS(CONSTS)                                                \
+    CONSTS, static_cast<const float*>(cin), static_cast<float*>(cout),      \
         static_cast<float*>(scr), static_cast<const int8_t*>(idn),          \
         static_cast<const float*>(mf), static_cast<const int32_t*>(ctxw),   \
         static_cast<const float*>(chemf),                                   \
         static_cast<const int32_t*>(chemi), static_cast<const float*>(dt), \
         static_cast<const float*>(aux), static_cast<const int32_t*>(tiles), \
         static_cast<const int32_t*>(flags), static_cast<int32_t*>(part_i)
-    if (c.euler && body == BODY_GENERAL)
+    if (c.euler && cc.closure)
+        return static_cast<int>(cudaErrorInvalidValue);
+    else if (cc.closure && body == BODY_GENERAL)
+        gfc_closure_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
+            HF2D_GFC_ARGS(cc));
+    else if (cc.closure && body == BODY_SPEC)
+        gfc_closure_kernel<BODY_SPEC><<<n_tiles, block, 0, s>>>(
+            HF2D_GFC_ARGS(cc));
+    else if (cc.closure && body == BODY_DUAL)
+        gfc_closure_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(
+            HF2D_GFC_ARGS(cc));
+    else if (cc.closure)   // no staged body in the closures' form
+        return static_cast<int>(cudaErrorInvalidValue);
+    else if (c.euler && body == BODY_GENERAL)
         gfc_euler_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
-            HF2D_GFC_ARGS);
+            HF2D_GFC_ARGS(c));
     else if (c.euler && body == BODY_DUAL)
-        gfc_euler_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(HF2D_GFC_ARGS);
+        gfc_euler_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(
+            HF2D_GFC_ARGS(c));
     else if (c.euler)   // no spec or staged body on an Euler deck
         return static_cast<int>(cudaErrorInvalidValue);
     else if (body == BODY_GENERAL)
-        gfc_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(HF2D_GFC_ARGS);
+        gfc_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
+            HF2D_GFC_ARGS(c));
     else if (body == BODY_SPEC)
-        gfc_kernel<BODY_SPEC><<<n_tiles, block, 0, s>>>(HF2D_GFC_ARGS);
+        gfc_kernel<BODY_SPEC><<<n_tiles, block, 0, s>>>(HF2D_GFC_ARGS(c));
     else if (body == BODY_DUAL)
-        gfc_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(HF2D_GFC_ARGS);
+        gfc_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(HF2D_GFC_ARGS(c));
     else
         return static_cast<int>(cudaErrorInvalidValue);
 #undef HF2D_GFC_ARGS
@@ -1697,14 +1982,16 @@ int hf2d_heat(const void* consts, const void* cout, void* scr,
 // a launch, out[4] the CTAs of CTA_THREADS threads an SM holds at that
 // shared memory, out[5] the device's SM count.  `kernel` is 8 * stage +
 // body: stage 0 gfc, 1 pass12 (body BODY_*), 2 heat (body ignored), 3
-// gfc_euler (BODY_GENERAL or BODY_DUAL).
+// gfc_euler (BODY_GENERAL or BODY_DUAL), 4 gfc_closure (BODY_GENERAL,
+// BODY_SPEC or BODY_DUAL).
 int hf2d_kernel_info(int kernel, int* out) {
     const void* fn = nullptr;
     const int stage = kernel / 8, body = kernel % 8;
     size_t dyn = 0;
     int ctas = 0, per_sm = 0, err = 0;
-    if (stage > 3 || (stage < 2 && body > BODY_STAGED)
-        || (stage == 3 && body != BODY_GENERAL && body != BODY_DUAL))
+    if (stage > 4 || (stage < 2 && body > BODY_STAGED)
+        || (stage == 3 && body != BODY_GENERAL && body != BODY_DUAL)
+        || (stage == 4 && body > BODY_DUAL))
         return static_cast<int>(cudaErrorInvalidValue);
     if (stage < 2 && body == BODY_STAGED) {
         const WindowKernel& k = stage == 0 ? GFC_WINDOW : PASS12_WINDOW;
@@ -1723,6 +2010,10 @@ int hf2d_kernel_info(int kernel, int* out) {
     } else if (stage == 3) {
         fn = body == BODY_DUAL ? (const void*)gfc_euler_kernel<BODY_DUAL>
                                : (const void*)gfc_euler_kernel<BODY_GENERAL>;
+    } else if (stage == 4) {
+        fn = body == BODY_SPEC ? (const void*)gfc_closure_kernel<BODY_SPEC>
+           : body == BODY_DUAL ? (const void*)gfc_closure_kernel<BODY_DUAL>
+                               : (const void*)gfc_closure_kernel<BODY_GENERAL>;
     } else {
         fn = (const void*)heat_kernel;
     }

@@ -95,12 +95,15 @@ constexpr int N_SCRATCH = 31;
 // ---- meta planes ----------------------------------------------------------
 constexpr int META_IDXL = 0;    // int8 (4, X, Y): idXl, idXr, idYu, idYd
 constexpr int META_BGX = 0;     // float (5, X, Y): BGX, BGY, Uw, Vw, l_min
-                                // (6 on Euler decks: + lam_t)
+                                // (6 on Euler decks: + lam_t; 7 where the
+                                // closure reads y+: + lam_t, y+)
 constexpr int META_BGY = 1;
 constexpr int META_UW = 2;
 constexpr int META_VW = 3;
 constexpr int META_LMIN = 4;
 constexpr int META_LAM_T = 5;   // Euler decks only: the chunk-constant lam_t
+constexpr int META_Y_PLUS = 6;  // closures that read y+ (van Driest, Chien):
+                                // the chunk-constant y+ (after a lam_t plane)
 
 // ---- CTA tile: TX rows (i) x TY columns (j), one thread per node ----------
 constexpr int TILE_X = 8;

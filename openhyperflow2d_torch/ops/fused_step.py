@@ -44,7 +44,13 @@ Each tile runs the same body in both forms, so they give the same bits.
 Euler decks (ProblemType=0) have no spec tiles: every tile runs the general
 body, gfc in its Euler form (``gfc_euler_kernel``, which reads lam_t from
 the chunk-constant meta plane META_LAM_T; the TPU kernel's non-NS staging,
-pallas_step.py:405-414), pass12 as on NS decks.
+pallas_step.py:405-414), pass12 as on NS decks.  NS decks with any
+closure but standard k-eps (``is_closure``: the Prandtl family, SA,
+Smagorinsky, or a k-eps variant) run gfc as ``gfc_closure_kernel``, whose
+node code carries every closure of the JAX package, and read y+ from the
+chunk-constant meta plane META_Y_PLUS where the closure does (van Driest,
+Chien; JAX stages it at pallas_step.py:407-410).  Their spec tiles exist
+only where the deck has k-eps nodes (``spec_supported``).
 
 The loop reads nothing back to the host and copies nothing to the device:
 dt and the per-iteration scalars stay on the device, in the working dtype,
@@ -84,7 +90,8 @@ from ..core.state import (_CHEM_PROPS, _CHEM_SPECIES, ChemTables, GridMeta,
 from ..core.static_ctx import (_CTX_BOOL_PLANES, _CTX_BOOL_STACKS,
                                build_packed_ctx, build_static_ctx)
 from ..core.step import (SlimState, StepAux, expand, gfc, has_heat_stage,
-                         lam_t_const, make_aux, pass12, shrink)
+                         lam_t_const, make_aux, needs_y_plus, pass12,
+                         shrink)
 
 # CTA tile (rows i, columns j); csrc/hf2d_ctx_bits.cuh TILE_X / TILE_Y
 TILE = (8, 32)
@@ -102,7 +109,8 @@ SCR_SRCADD_E = 30   # SrcAdd of rhoE, written by heat_kernel and read by
 _PRIMS = 18   # carry planes from here on are written by gfc
 
 # the kernels the solver's paths launch (on Euler decks gfc_euler_kernel
-# in place of gfc_kernel: the general body's Euler form; pass12 has none);
+# in place of gfc_kernel: the general body's Euler form; on NS decks with
+# any closure but standard k-eps gfc_closure_kernel; pass12 has neither);
 # then the forms no path launches, which stay as chip_smoke.py's A/B
 # candidates: heat_kernel, the heat stage as a launch of its own (folded
 # into pass12's general body, it saves the launch and the SrcAdd plane's
@@ -112,7 +120,10 @@ NS_KERNEL_NAMES = ("gfc_kernel<spec>", "gfc_kernel<general>",
                    "pass12_kernel<spec>", "pass12_kernel<general>",
                    "gfc_kernel<dual>", "pass12_kernel<dual>")
 EULER_KERNEL_NAMES = ("gfc_euler_kernel<general>", "gfc_euler_kernel<dual>")
-PATH_KERNEL_NAMES = NS_KERNEL_NAMES + EULER_KERNEL_NAMES
+CLOSURE_KERNEL_NAMES = ("gfc_closure_kernel<spec>",
+                        "gfc_closure_kernel<general>",
+                        "gfc_closure_kernel<dual>")
+PATH_KERNEL_NAMES = NS_KERNEL_NAMES + EULER_KERNEL_NAMES + CLOSURE_KERNEL_NAMES
 KERNEL_NAMES = PATH_KERNEL_NAMES + ("heat_kernel", "gfc_kernel<staged>",
                                     "pass12_kernel<staged>")
 DISPATCH_FORMS = ("lists", "dual")
@@ -139,6 +150,25 @@ def is_euler(params) -> bool:
     form (``gfc_euler_kernel``) with lam_t as a chunk-constant input plane
     (the TPU kernel's staging outside SM_NS, pallas_step.py:405-414)."""
     return params.sm != fl.SM_NS
+
+
+# the k-eps variants with constants or terms of their own (physics.py
+# _turb_mod_rans); any other TurbExtModel takes the standard constants
+KEPS_VARIANTS = (fl.TEM_k_eps_Chien, fl.TEM_k_eps_JL, fl.TEM_k_eps_LSY,
+                 fl.TEM_k_eps_RNG)
+# csrc/fused_step.cu Consts::models: a bit per closure family of p.models
+MODEL_BITS = {"prandtl": 1, "keps": 2, "sa": 4, "smag": 8}
+
+
+def is_closure(params) -> bool:
+    """An NS deck with a closure other than standard k-eps (a Prandtl,
+    SA or Smagorinsky family, or a k-eps variant): gfc runs
+    ``gfc_closure_kernel``, whose node code carries every closure
+    (physics.py:299-542 of the JAX package)."""
+    p = params
+    return p.sm == fl.SM_NS and (
+        any(m != "keps" for m in p.models)
+        or ("keps" in p.models and p.tem in KEPS_VARIANTS))
 
 
 def carry_views(carry: torch.Tensor, dt) -> SlimState:
@@ -274,6 +304,7 @@ CARRY = {name: sum(n for _, n in CARRY_FIELDS[:k])
 SCR_S, SCR_A, SCR_B, SCR_SRC_K, SCR_SRC_EPS = 0, 9, 18, 27, 28
 META_LMIN = 4       # FusedStep.mf: BGX, BGY, Uw, Vw, l_min
 META_LAM_T = 5      # and on Euler decks lam_t (hf2d_ctx_bits.cuh)
+META_Y_PLUS = 6     # and where the closure reads y+ (needs_y_plus), y+
 # the planes each stage reads, by slot (fused_step.cu GfcPlanes,
 # Pass12Planes): at +-1 from its stencil stack (gfc the carry, pass12 the
 # scratch; a window each), at the node from the stencil stack and from its
@@ -413,23 +444,44 @@ class KernelConsts(ctypes.Structure):
         ("hu", ctypes.c_float * 4)] + [(f, ctypes.c_int) for f in (
             "X", "Y", "nby", "has_walls", "fast_math", "bff", "alt_rms",
             "serial_rms", "zeldovich", "heat", "x0", "x1", "heat_fold",
-            "euler")]
+            "euler", "closure", "models", "prandtl_form", "keps_form")] + [
+        (f, ctypes.c_float) for f in ("delta_bl", "esc_l", "smag_cs2")]
+
+
+def closure_forms(p: SolverParams) -> tuple:
+    """(Prandtl length form, k-eps form) of the closure kernel, as
+    TurbExtModel ids: the Prandtl family's van Driest, Escudier or
+    Klebanoff where the case runs it (the last two with delta_bl > 0),
+    else Prandtl's; the k-eps variant, else the standard constants
+    (physics.py _turb_mod_rans)."""
+    tem = p.tem
+    prandtl = (tem if tem == fl.TEM_vanDriest
+               or (tem in (fl.TEM_Escudier, fl.TEM_Klebanoff)
+                   and p.delta_bl > 0) else fl.TEM_Prandtl)
+    return prandtl, tem if tem in KEPS_VARIANTS else fl.TEM_k_eps_Std
 
 
 def kernel_consts(p: SolverParams, plan: TilePlan, heat: bool,
                   fold: bool = True) -> KernelConsts:
     # ctypes rounds each double to float32, as the working dtype does
+    # (the closures' constants are folded in float64 first, as JAX folds
+    # its Python floats)
+    prandtl, keps = closure_forms(p)
+    c_mu = 0.0845 if keps == fl.TEM_k_eps_RNG else 0.09
     return KernelConsts(
         dx=p.dx, dy=p.dy, dxx=p.dy / (p.dx + p.dy), dyy=p.dx / (p.dx + p.dy),
         min_dxdy=min(p.dx, p.dy), cfl=p.CFL, beta0=p.beta0, sig_w=p.SigW,
         sig_f=p.SigF, k0=p.K0, k0_div=max(p.K0, 1e-30), tf=p.Tf,
-        c_mu075=0.09 ** 0.75, hu=(ctypes.c_float * 4)(*p.Hu),
+        c_mu075=c_mu ** 0.75, hu=(ctypes.c_float * 4)(*p.Hu),
         X=p.MaxX, Y=p.MaxY, nby=plan.nby, has_walls=int(p.has_walls),
         fast_math=int(p.fast_math), bff=p.bff,
         alt_rms=int(p.isAlternateRMS), serial_rms=int(p.serial_rms_mode),
         zeldovich=int(p.chemistry == fl.CRM_ZELDOVICH), heat=int(heat),
         x0=plan.window[0], x1=plan.window[1], heat_fold=int(fold),
-        euler=int(is_euler(p)))
+        euler=int(is_euler(p)), closure=int(is_closure(p)),
+        models=sum(MODEL_BITS[m] for m in p.models), prandtl_form=prandtl,
+        keps_form=keps, delta_bl=p.delta_bl, esc_l=0.09 * p.delta_bl,
+        smag_cs2=(0.1 * (p.dx * p.dy) ** 0.5) ** 2)
 
 
 def pack_chem(chem: ChemTables, p: SolverParams):
@@ -463,7 +515,12 @@ class FusedStep:
     body computes its nodes' heat source itself: an iteration launches no
     heat_kernel (``iteration_launches``).  On an Euler deck gfc is
     ``gfc_euler_kernel`` and reads lam_t from meta plane META_LAM_T, which
-    the chunk sets from its state (``set_lam_t``)."""
+    the chunk sets from its state (``set_lam_t``).  On an NS deck with a
+    closure other than standard k-eps (``is_closure``) gfc is
+    ``gfc_closure_kernel``; where the closure reads y+ (van Driest,
+    Chien) it reads meta plane META_Y_PLUS, which the chunk sets from its
+    state (``set_y_plus``), so a ``recalc_y_plus`` between chunks reaches
+    the next one."""
 
     def __init__(self, meta: GridMeta, params: SolverParams,
                  chem: ChemTables, plan: TilePlan, dispatch: str, ctx):
@@ -477,10 +534,15 @@ class FusedStep:
         # it; otherwise SrcAdd stays 0, as in core/step.gfc
         self.has_heat = has_heat_stage(p) and plan.heat_tiles.numel() > 0
         self.euler = is_euler(p)
+        self.closure = is_closure(p)
+        self.has_y_plus = needs_y_plus(p)
         self.idn = torch.stack([meta.idXl, meta.idXr, meta.idYu, meta.idYd])
+        # the lam_t plane on Euler decks; y+ after a (zero) lam_t plane
+        n_more = META_Y_PLUS + 1 - META_LAM_T if self.has_y_plus \
+            else int(self.euler)
         self.mf = torch.stack([meta.BGX, meta.BGY, meta.Uw, meta.Vw,
                                meta.l_min] + [torch.zeros_like(meta.l_min)]
-                              * self.euler).to(p.torch_dtype)
+                              * n_more).to(p.torch_dtype)
         self.ctxw = build_packed_ctx(meta, p)
         self.chemf, self.chemi = pack_chem(chem, p)
         self.zero_src = torch.zeros((fl.NUM_EQ, p.MaxX, p.MaxY),
@@ -502,9 +564,17 @@ class FusedStep:
         if self.euler:
             self.mf[META_LAM_T].copy_(lam_t)
 
+    def set_y_plus(self, y_plus: torch.Tensor) -> None:
+        """The chunk-constant y+ plane of a closure that reads it (the
+        state's y+ at the chunk's entry, JAX pallas_step.py:407-410);
+        nothing elsewhere."""
+        if self.has_y_plus:
+            self.mf[META_Y_PLUS].copy_(y_plus)
+
     def gfc_name(self, body: str) -> str:
         """The name of gfc's kernel instantiation for ``body``."""
-        kernel = "gfc_euler_kernel" if self.euler else "gfc_kernel"
+        kernel = ("gfc_euler_kernel" if self.euler else
+                  "gfc_closure_kernel" if self.closure else "gfc_kernel")
         return f"{kernel}<{body}>"
 
     def iteration_launches(self) -> list:
@@ -564,6 +634,10 @@ class FusedStep:
             raise NotImplementedError(
                 f"gfc_euler_kernel has no {body!r} body (an Euler deck's "
                 f"gfc runs the general body's Euler form)")
+        if self.closure and body == "staged":
+            raise NotImplementedError(
+                "gfc_closure_kernel has no staged body (the staged form is "
+                "an A/B candidate of the standard k-eps decks)")
         self._check_cuda(cin, cout, scr, dt, aux, self.mf, self.chemf)
         tiles, n_tiles = self.plan.launch_grid(body)
         self._launch("hf2d_gfc", self.gfc_name(body), (
@@ -641,9 +715,14 @@ class FusedStep:
         under SM_NS)."""
         return self.mf[META_LAM_T] if self.euler else None
 
+    def y_plus(self):
+        """The y+ ``expand`` takes: the y+ plane where the closure reads
+        it, else None (zeros)."""
+        return self.mf[META_Y_PLUS] if self.has_y_plus else None
+
     def gfc_plain(self, cin, cout, scr, dt, aux, part_i):
         full = expand(carry_views(cin, dt), self.params, self.zero_src,
-                      lam_t=self.lam_t())
+                      y_plus=self.y_plus(), lam_t=self.lam_t())
         out, dt_field, unstable = gfc(full, self.meta, self.params,
                                       self.chem, self._aux(aux),
                                       return_fields=True, ctx=self.ctx,
@@ -651,7 +730,7 @@ class FusedStep:
         scr[0:9] = out.S
         scr[9:18] = out.A
         scr[18:27] = out.B
-        scr[27:29] = out.Src[fl.i2d_k:]
+        scr[27:29] = out.Src[fl.i2d_k:]   # k and eps, or SA's nu_t
         if self.has_heat:
             # what the heat stage reads (core/physics.py): lam + lam_t of
             # gfc's output, lam after chemistry and lam_t from the CP
@@ -853,6 +932,7 @@ class KernelChunk:
         dtype = p.torch_dtype
         ctx = step.ctx
         step.set_lam_t(state.lam_t)
+        step.set_y_plus(state.y_plus)
         ca, diag0, raw, kaux = self.prologue(state, n_iters, start_iter)
         cb = torch.empty_like(ca)
         scr = torch.empty((N_SCRATCH,) + ca.shape[1:], dtype=dtype,
@@ -878,7 +958,7 @@ class KernelChunk:
 
         # epilogue: the final iteration's gfc on the whole grid
         full = expand(carry_views(ca, dt), p, step.zero_src,
-                      lam_t=lam_t_const(state, p))
+                      step.y_plus(), lam_t_const(state, p))
         out, dt_new, unstable_last = gfc(full, meta, p, self.chem,
                                          self.aux_at(start_iter + n_iters - 1),
                                          ctx=ctx)

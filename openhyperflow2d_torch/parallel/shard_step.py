@@ -53,7 +53,7 @@ from ..core.physics import fill_node
 from ..core.state import GridMeta, SolverState
 from ..core.static_ctx import build_static_ctx, generic_interior_map
 from ..core.step import (expand, gfc, has_heat_stage, lead, make_aux,
-                         pass12, shrink, trail)
+                         needs_y_plus, pass12, shrink, trail)
 from ..ops.fused_step import (N_SCRATCH, FusedStep, carry_views,
                               chunk_diags, fuse_blocks, halo_depth,
                               heat_node_map, is_euler, local_dt,
@@ -220,6 +220,15 @@ class _StripChunk:
             return [None] * len(state.strips)
         return self.extend([st.lam_t for st in state.strips], ablate)
 
+    def yp_ext(self, state: StripState, ablate: bool = False) -> list:
+        """Each strip's chunk-constant y+ over its extended strip where the
+        closure reads it (``needs_y_plus``), its halos from the neighbours
+        once a chunk (``yp_ext``, shard_step.py:162, 341, 390; ``ablate``:
+        as ``extend``); Nones elsewhere (expand's zeros)."""
+        if not needs_y_plus(self.params):
+            return [None] * len(state.strips)
+        return self.extend([st.y_plus for st in state.strips], ablate)
+
     def global_dt(self, local, dt_prev):
         """dt from each strip's local minimum: the minimum across strips,
         then the serial build's monotone rule."""
@@ -285,17 +294,21 @@ class _StripChunk:
         return outs, {"RMS": rms, "DD_max": ddm, "dt_used": dt}
 
     def epilogue(self, ext_carry, dt, state: StripState, it: int,
-                 lam=None):
+                 lam=None, yp=None):
         """gfc of iteration ``it`` (with its heat stage) on each extended
-        carry, halos filled; ``lam``: the strips' ``lam_ext`` (None: made
-        here); returns (StripState, dt_new, unstable)."""
+        carry, halos filled; ``lam``, ``yp``: the strips' ``lam_ext`` and
+        ``yp_ext`` (None: made here); returns (StripState, dt_new,
+        unstable)."""
         if lam is None:
             lam = self.lam_ext(state)
+        if yp is None:
+            yp = self.yp_ext(state)
         outs, dts, uns = [], [], []
         aux = self.aux_at(it)
-        for c, m, ctx, lam_t in zip(ext_carry, self.meta_ext, self.ctx, lam):
+        for c, m, ctx, lam_t, y_plus in zip(ext_carry, self.meta_ext,
+                                            self.ctx, lam, yp):
             full = expand(carry_views(c, dt), self.p_loc, self.zero_src,
-                          lam_t=lam_t)
+                          y_plus, lam_t)
             out, dt_field, unstable = gfc(full, m, self.p_loc, self.chem,
                                           aux, return_fields=True, ctx=ctx)
             outs.append(out)
@@ -338,16 +351,17 @@ class ShardChunk(_StripChunk):
         p, pl = self.params, self.p_loc
         own, diag0 = self.prologue(state, start_iter)
         lam = self.lam_ext(state, self.halo_ablate)
+        yp = self.yp_ext(state, self.halo_ablate)
         dt = diag0["dt_used"]
         rms, ddm, dts, uns = [], [], [], []
         for k in range(start_iter, start_iter + n_iters - 1):
             ext = self.extend(own, self.halo_ablate)
             aux_g, aux_p = self.aux_at(k), self.aux_at(k + 1)
             outs, local = [], []
-            for c, m, ctx, lam_t in zip(ext, self.loop_meta, self.loop_ctx,
-                                        lam):
-                full = expand(carry_views(c, dt), pl, self.zero_src,
-                              lam_t=lam_t)
+            for c, m, ctx, lam_t, y_plus in zip(ext, self.loop_meta,
+                                                self.loop_ctx, lam, yp):
+                full = expand(carry_views(c, dt), pl, self.zero_src, y_plus,
+                              lam_t)
                 out, dt_field, unstable = gfc(full, m, pl, self.chem, aux_g,
                                               return_fields=True, ctx=ctx)
                 outs.append((out, unstable))
@@ -459,10 +473,12 @@ class KernelShardChunk(_StripChunk):
                  src_ext=None):
         p, dtype = self.params, self.params.torch_dtype
         ca, diag0, raw, kaux = self.start(state, n_iters, start_iter)
-        lam = self.lam_ext(state)
-        for step, lam_t in zip(self.steps, lam):
+        lam, yp = self.lam_ext(state), self.yp_ext(state)
+        for step, lam_t, y_plus in zip(self.steps, lam, yp):
             if lam_t is not None:
                 step.set_lam_t(lam_t)
+            if y_plus is not None:
+                step.set_y_plus(y_plus)
         dev, Y, K = self.comm.device, p.MaxY, self.K
         cb = [torch.empty_like(c) for c in ca]
         scr, part_f, part_i = [], [], []
@@ -506,7 +522,8 @@ class KernelShardChunk(_StripChunk):
             pending.wait()
 
         out, _, unstable_last = self.epilogue(ca, dt, state,
-                                              start_iter + n_iters - 1, lam)
+                                              start_iter + n_iters - 1, lam,
+                                              yp)
         return out, chunk_diags(diag0, blocks, unstable_last)
 
 

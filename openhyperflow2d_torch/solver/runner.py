@@ -55,11 +55,6 @@ def check_supported(params) -> None:
     port does not do yet (nothing computes a partial result)."""
     p = params
     missing = []
-    other = [m for m in p.models if m != "keps"]
-    if other:
-        missing.append(f"turbulence closures {other}")
-    if "keps" in p.models and p.tem != fl.TEM_k_eps_Std:
-        missing.append(f"k-eps variant TurbExtModel={p.tem}")
     if p.ft != fl.FT_FLAT:
         missing.append("axisymmetric flow")
     if not p.uniform_mesh:

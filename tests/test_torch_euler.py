@@ -77,7 +77,7 @@ def test_check_supported_accepts_euler_decks(case):
 @pytest.mark.parametrize("change, words", [
     ({"ft": fl.FT_AXISYMMETRIC}, "axisymmetric"),
     ({"has_nrbc": True}, "non-reflected"),
-    ({"models": ("sa",)}, "turbulence closures"),
+    ({"has_d2y": True}, "soft boundary conditions"),
 ])
 def test_check_supported_still_refuses_the_rest(change, words):
     p = port_case(jinit.build_case(DECKS["channel"]())).params

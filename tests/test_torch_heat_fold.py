@@ -11,8 +11,10 @@ tests/test_torch_kernel_path_heat.py (``reacting_rans_deck(48, 40,
 wall_bottom=True, adiabatic=False, with_step=True)`` and
 ``combustor_deck(64, 256, with_step=True, adiabatic=False)``) and on the
 Euler cylinders with conducting walls (``cylinders_deck(64, 48)``,
-isAdiabaticWall=0: every tile general, lam_t the chunk-constant plane),
-each as a single domain and as ``LocalComm(2, "cpu")`` X strips:
+isAdiabaticWall=0: every tile general, lam_t the chunk-constant plane) and
+on the 64x256 step deck with the RNG k-eps variant (TurbExtModel=8: gfc in
+the closures' form, gfc_closure_kernel), each as a single domain and as
+``LocalComm(2, "cpu")`` X strips:
 
 * (a) gfc_plain, then heat_plain before pass12_plain and again after it,
   on the same buffers: the two SrcAdd planes are bitwise equal, and
@@ -58,12 +60,21 @@ DECKS = {
     "combustor_step_heat": lambda: combustor_deck(
         64, 256, with_step=True, adiabatic=False),
     "euler_cylinders_heat": lambda: _conducting(cylinders_deck(64, 48)),
+    "combustor_step_heat_rng": lambda: _rng(combustor_deck(
+        64, 256, with_step=True, adiabatic=False)),
 }
 
 
 def _conducting(deck):
     """An Euler deck with conjugate heat at its walls."""
     deck.data["isAdiabaticWall"] = "0"
+    return deck
+
+
+def _rng(deck):
+    """The deck with the RNG k-eps variant: gfc runs gfc_closure_kernel's
+    plain version, pass12 the folded heat stage as on the standard deck."""
+    deck.data["TurbExtModel"] = "8"
     return deck
 LAYOUTS = ("single", "strips")
 TG = 21   # carry plane of Tg (CARRY_FIELDS)

@@ -55,10 +55,11 @@ SUPPORTED = tstate.SolverParams(MaxX=8, MaxY=8, dx=1e-3, dy=1e-3,
 
 
 @pytest.mark.parametrize("change, words", [
-    # Euler decks are ported: accepted (words None)
+    # Euler decks, every closure and the k-eps variants are ported:
+    # accepted (words None)
     ({"sm": fl.SM_EULER}, None),
-    ({"models": ("keps", "sa")}, "turbulence closures ['sa']"),
-    ({"tem": fl.TEM_k_eps_Chien}, "k-eps variant"),
+    ({"models": ("keps", "sa")}, None),
+    ({"tem": fl.TEM_k_eps_Chien}, None),
     ({"ft": fl.FT_AXISYMMETRIC}, "axisymmetric"),
     ({"uniform_mesh": False}, "non-uniform meshes"),
     ({"has_d2y": True}, "soft boundary conditions"),

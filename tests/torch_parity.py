@@ -5,6 +5,7 @@ numpy arrays.  JAX runs with x64 (tests/conftest.py).
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -107,3 +108,165 @@ def beta_err(want: dict, got: dict, rtol=1e-6, atol=3e-6,
     y = np.asarray(got["beta"], np.float64)[keep]
     return float(np.max(np.abs(x - y) / (atol + rtol * np.abs(x)),
                         initial=0.0))
+
+
+# The turbulence closures of tests/test_torch_turbulence*.py, on the wall
+# channel of tests/test_turbulence_models.py: (TurbulenceModel, the
+# TurbExtModel's name in core/flags).  "realisable" is a TurbExtModel no
+# branch of _turb_mod_rans names: it takes the standard k-eps constants.
+TURB_CLOSURES = {
+    "chien": (4, "TEM_k_eps_Chien"), "jl": (4, "TEM_k_eps_JL"),
+    "lsy": (4, "TEM_k_eps_LSY"), "rng": (4, "TEM_k_eps_RNG"),
+    "realisable": (4, "TEM_k_eps_Realisable"),
+    "sa": (3, "TEM_Spalart_Allmaras"), "smagorinsky": (5, "TEM_Smagorinsky"),
+    "prandtl": (2, "TEM_Prandtl"), "van_driest": (2, "TEM_vanDriest"),
+    "escudier": (2, "TEM_Escudier"), "klebanoff": (2, "TEM_Klebanoff"),
+}
+# the closures that read y+ (van Driest's damping, Chien's f_mu and L_eps)
+Y_PLUS_CLOSURES = ("chien", "van_driest")
+
+
+def jax_wall_channel(name, nx=48, ny=40):
+    """The JAX package's deck of ``name`` (TURB_CLOSURES): channel_deck at
+    300 m/s with a no-slip bottom wall and delta_bl 0.2, as
+    tests/test_turbulence_models.py:38-45 builds it (the port's
+    examples.wall_channel_deck)."""
+    from openhyperflow2d_tpu.core import flags as fl
+    from openhyperflow2d_tpu.examples import channel_deck
+    tm, tem = TURB_CLOSURES[name]
+    d = channel_deck(nx=nx, ny=ny, u=300.0, problem_type=1, turb_model=tm,
+                     turb_ext_model=getattr(fl, tem), cfl=0.05, beta=0.95)
+    d.data["Contour1.Bound3.Cond"] = "NT_WNS_2D"
+    d.data["delta_bl"] = "0.2"
+    return d
+
+
+def np_copy(obj) -> dict:
+    """np_fields with each array copied (a JAX chunk donates its input
+    state's buffers)."""
+    return {k: None if v is None else np.array(v, copy=True)
+            for k, v in np_fields(obj).items()}
+
+
+@functools.lru_cache(maxsize=None)
+def eager_closure_runs(name):
+    """JAX's XLA path and the port's eager path, float64, on
+    ``jax_wall_channel(name)`` (each deck built once by the JAX package and
+    handed to the port, port_case): ``init`` = (JAX fields, port fields)
+    after the Solvers' initial FillNode2D; ``chunk`` = (JAX fields, JAX
+    diags, port fields, port diags) after a chunk of 5 iterations (SA's 3,
+    before its impulsive start flags Tg<0), for the closures that read y+
+    after 2 iterations and recalc_y_plus() on both (with y+ = 0 Chien's
+    mu_t is 0)."""
+    from openhyperflow2d_tpu.solver import init as jinit
+    from openhyperflow2d_tpu.solver.runner import Solver as JSolver
+    from openhyperflow2d_torch.solver.runner import Solver
+    jc = jinit.build_case(jax_wall_channel(name))
+    js = JSolver(jc)
+    ts = Solver(port_case(jc), device="cpu", use_kernels=False)
+    init = (np_copy(js.state), ts.host_state())
+    if name in Y_PLUS_CLOSURES:
+        js.run_iters(2)
+        ts.run_iters(2)
+        js.recalc_y_plus()
+        ts.recalc_y_plus()
+    n = 3 if name == "sa" else 5
+    wd = {k: np.asarray(v) for k, v in js.run_iters(n).items()}
+    gd = ts.run_iters(n)
+    return init, (np_copy(js.state), wd, ts.host_state(), gd)
+
+
+INIT_FIELDS = ["S", "A", "B", "F", "Src", "U", "V", "p", "Tg", "mu_t",
+               "lam_t"]
+CHUNK_FIELDS = ["S", "U", "V", "p", "Tg", "Yc", "R", "CP", "lam", "mu",
+                "mu_t", "lam_t", "dt", "y_plus"]
+
+
+def rel_diff(got, want) -> float:
+    want = np.asarray(want, np.float64)
+    return float(np.max(np.abs(np.asarray(got, np.float64) - want)
+                        / np.maximum(np.abs(want), 1e-300)))
+
+
+def check_eager_init(name, tol=1e-10):
+    """The initial fill (fluxes and the closure's init branch) of both
+    packages: every field to ``tol`` of its plane's scale."""
+    want, got = eager_closure_runs(name)[0]
+    errs = {f: scaled_err(want, got, f) for f in INIT_FIELDS}
+    assert max(errs.values()) < tol, errs
+
+
+def check_eager_chunk(name, tol=1e-10):
+    """The chunk of both packages: fields to ``tol`` of each plane's scale,
+    beta by beta_err (rtol 1e-6, atol 3e-6 where the equation is not at
+    float noise), RMS and dt_used to rtol ``tol``, the unstable rows
+    exactly; the closures that read y+ with y+ and mu_t positive."""
+    want, wd, got, gd = eager_closure_runs(name)[1]
+    errs = {f: scaled_err(want, got, f) for f in CHUNK_FIELDS}
+    assert max(errs.values()) < tol, errs
+    assert beta_err(want, got) < 1.0
+    for key in ("RMS", "dt_used"):
+        assert rel_diff(gd[key], wd[key]) < tol, key
+    np.testing.assert_array_equal(gd["unstable"], wd["unstable"])
+    assert not gd["unstable"].any()
+    assert got["mu_t"].max() > 0
+    if name in Y_PLUS_CLOSURES:
+        assert got["y_plus"].max() > 0
+
+
+# the closures' kernel-path tests (tests/test_torch_turbulence_kernel*.py):
+# two cycles of CLOSURE_CYCLE iterations (SA's 3, before its impulsive
+# start flags Tg<0), the second from JAX's state after the first
+CLOSURE_CYCLE = 6
+
+
+@functools.lru_cache(maxsize=None)
+def pallas_closure_cycles(name, K):
+    """(JAX case, [(fields, diags) after each of two cycles]) of JAX's
+    Pallas path in interpret mode at fuse_iters=K on
+    ``jax_wall_channel(name)``, float64; run_cycle recalculates y+ after
+    each cycle (the solver's MPI-build semantics), so the second cycle of
+    Chien and van Driest runs with y+ > 0."""
+    from openhyperflow2d_tpu.solver import init as jinit
+    from openhyperflow2d_tpu.solver.runner import Solver as JSolver
+    jc = jinit.build_case(jax_wall_channel(name))
+    jc.Nstep = 3 if name == "sa" else CLOSURE_CYCLE
+    js = JSolver(jc, use_pallas=True, pallas_fuse=K, pallas_tile=(16, 128))
+    out = []
+    for _ in range(2):
+        wd, _ = js.run_cycle()
+        out.append((np_copy(js.state),
+                    {k: np.asarray(v) for k, v in wd.items()}))
+    return jc, out
+
+
+KERNEL_FIELDS = ["S", "U", "V", "p", "Tg", "Yc", "R", "CP", "lam", "mu",
+                 "mu_t", "lam_t", "dt", "y_plus"]
+
+
+def check_kernel_cycles(name, K, tols):
+    """The port's kernel path (the kernels' plain versions on CPU
+    tensors, ``fuse_iters=K``) against ``pallas_closure_cycles``: cycle c
+    holds every field to ``tols[c]`` of its plane's scale and RMS and
+    dt_used to rtol ``tols[c]``, beta by beta_err where the equation is
+    above 1e-4 of its scale, the unstable and dt_overrun rows exactly."""
+    from openhyperflow2d_torch.core.state import state_from_numpy
+    from openhyperflow2d_torch.solver.runner import Solver
+    jc, cycles = pallas_closure_cycles(name, K)
+    ts = Solver(port_case(jc), device="cpu", use_kernels=True, fuse_iters=K)
+    assert ts.fused.closure
+    assert ts.fused.iteration_launches()[0].startswith("gfc_closure_kernel")
+    for c, (want, wd) in enumerate(cycles):
+        if c:
+            ts.state = state_from_numpy(cycles[c - 1][0])
+        gd, _ = ts.run_cycle()
+        got = ts.host_state()
+        errs = {f: scaled_err(want, got, f) for f in KERNEL_FIELDS}
+        assert max(errs.values()) < tols[c], (c, errs)
+        assert beta_err(want, got, floor=1e-4) < 1.0, c
+        for key in ("RMS", "dt_used"):
+            assert rel_diff(gd[key], wd[key]) < tols[c], (c, key)
+        for key in ("unstable", "dt_overrun"):
+            np.testing.assert_array_equal(gd[key], wd[key], key)
+    if name in Y_PLUS_CLOSURES:
+        assert got["y_plus"].max() > 0 and got["mu_t"].max() > 0
