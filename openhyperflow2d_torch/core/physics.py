@@ -6,12 +6,14 @@ hyper_flow_node.hpp:374-957, deeps2d_core.cpp:4697-4780) on torch tensors.
 Every per-node branch is a ``torch.where`` mask, with the operation order of
 the JAX version kept so float64 results agree to rounding.
 
-Every closure of the JAX package runs here on flat uniform meshes: the
-Prandtl family, the k-eps variants, Spalart-Allmaras and Smagorinsky
-(``_turb_mod_rans``); so does the conjugate wall-heat stage of
-non-adiabatic walls (``calc_heat_on_wall_sources``).  The axisymmetric
-add-ons are not ported; ``check_supported`` (solver/runner.py) refuses
-such cases before anything runs.
+Every closure of the JAX package runs here on flat and axisymmetric
+uniform meshes: the Prandtl family, the k-eps variants, Spalart-Allmaras
+and Smagorinsky (``_turb_mod_rans``, with the axisymmetric add-ons of
+k-eps and SA); so does the conjugate wall-heat stage of non-adiabatic
+walls (``calc_heat_on_wall_sources``).  Axisymmetric flow (``p.ft``) adds
+the radial flux F and the V / r terms (``fill_node``).  The moving-wall
+sources (``isSrcAdd``) are not ported; ``check_supported``
+(solver/runner.py) refuses such cases before anything runs.
 """
 
 from __future__ import annotations
@@ -172,6 +174,8 @@ def fill_node(state: SolverState, meta: GridMeta, params: SolverParams,
     Tg_new = _safe_div(p_new, state.R * rho_s)
 
     # --- effective transport & viscous/convective fluxes -------------------
+    y_r = ctx.y_r                            # node radius (x,y init: 3877)
+
     if p.sm == fl.SM_NS:
         lam_t = mu_t * state.CP
         sig = ctx.sig
@@ -182,7 +186,10 @@ def fill_node(state: SolverState, meta: GridMeta, params: SolverParams,
                        state.lam)
         diff = lam_eff / state.CP
         L2 = (2.0 / 3.0) * mu_eff
-        dila = L2 * (state.dUdx + state.dVdy)
+        if p.ft == fl.FT_AXISYMMETRIC:
+            dila = L2 * (state.dUdx + state.dVdy + V / y_r)
+        else:
+            dila = L2 * (state.dUdx + state.dVdy)
 
     an = list(a_l)
     bn = list(b_l)
@@ -198,6 +205,15 @@ def fill_node(state: SolverState, meta: GridMeta, params: SolverParams,
     for c in range(4, 4 + fl.NUM_COMPONENTS):
         an[c] = s[c] * U
         bn[c] = s[c] * V
+
+    if p.ft == fl.FT_AXISYMMETRIC:
+        # FT enum value is 1 for axisymmetric, so FT* factors are unity
+        fn[0] = bn[0]
+        fn[1] = an[2]
+        fn[2] = fn[0] * V
+        fn[3] = bn[3]
+        for c in range(4, 4 + fl.NUM_COMPONENTS):
+            fn[c] = bn[c]
 
     if p.sm == fl.SM_NS:
         sxx = 2.0 * mu_eff * state.dUdx - dila
@@ -219,8 +235,16 @@ def fill_node(state: SolverState, meta: GridMeta, params: SolverParams,
         for c in range(4, 4 + fl.NUM_COMPONENTS):
             an[c] = an[c] - diff * state.droYdx[c - 4]
             bn[c] = bn[c] - diff * state.droYdy[c - 4]
-        # flat NS zeroes the whole F vector, all NumEq (hpp:595-598)
-        fn = [zero] * ne
+        if p.ft == fl.FT_AXISYMMETRIC:
+            t00 = 2.0 * mu_eff * V / y_r - dila
+            fn[1] = fn[1] - RY1
+            fn[2] = fn[2] - (RY2 + t00)
+            fn[3] = fn[3] - RY3
+            for c in range(4, 4 + fl.NUM_COMPONENTS):
+                fn[c] = fn[c] - diff * state.droYdy[c - 4]
+        else:
+            # flat NS zeroes the whole F vector, all NumEq (hpp:595-598)
+            fn = [zero] * ne
 
     # --- assemble outputs through the guard mask ---------------------------
     def sel(new, old):
@@ -265,9 +289,6 @@ def _turb_mod_rans(state, meta, p, s, U, V, a_l, b_l, f_l, src, mu_t, lam_t,
     m_prandtl / m_keps / m_sa / m_smag; a ``tem`` no branch names takes the
     standard constants.
     """
-    if p.ft != fl.FT_FLAT:
-        raise NotImplementedError(
-            "the axisymmetric turbulence add-ons are not ported")
     rho = s[fl.i2d_Rho]
     rho_s = torch.where(rho != 0, rho, 1)
     tem = p.tem
@@ -304,6 +325,8 @@ def _turb_mod_rans(state, meta, p, s, U, V, a_l, b_l, f_l, src, mu_t, lam_t,
         tmp1 = state.dUdy + state.dVdx
         tmp2 = rho * l_base
         tmp3 = state.dUdx * state.dUdx + state.dVdy * state.dVdy
+        if p.ft == fl.FT_AXISYMMETRIC:
+            tmp3 = tmp3 + U / ctx.y_r
         mu_t_ke = torch.where(mu_t == 0, rho * l_base * l_base * grad_mag,
                               mu_t)
         G = mu_t_ke * (tmp1 * tmp1 + 2.0 * tmp3)
@@ -394,6 +417,12 @@ def _turb_mod_rans(state, meta, p, s, U, V, a_l, b_l, f_l, src, mu_t, lam_t,
                          src[fl.i2d_eps])
             src[fl.i2d_k] = wsel(m_keps, src_k, src[fl.i2d_k])
             src[fl.i2d_eps] = wsel(m_keps, src_e, src[fl.i2d_eps])
+            # axisymmetric add-on (hpp:241-252)
+            if p.ft == fl.FT_AXISYMMETRIC:
+                f_k = (state.mu + mu_t_ke) * state.dkdy
+                f_e = (state.mu + mu_t_ke / 1.3) * state.depsdy
+                f_l[fl.i2d_k] = wsel(m_keps, f_k, f_l[fl.i2d_k])
+                f_l[fl.i2d_eps] = wsel(m_keps, f_e, f_l[fl.i2d_eps])
         else:
             f_l[fl.i2d_k] = wsel(m_keps, 0.0, f_l[fl.i2d_k])
             f_l[fl.i2d_eps] = wsel(m_keps, 0.0, f_l[fl.i2d_eps])
@@ -456,6 +485,10 @@ def _turb_mod_rans(state, meta, p, s, U, V, a_l, b_l, f_l, src, mu_t, lam_t,
             a_l[fl.i2d_nu_t] = wsel(on, Snu * U - rx_nu, a_l[fl.i2d_nu_t])
             b_l[fl.i2d_nu_t] = wsel(on, Snu * V - ry_nu, b_l[fl.i2d_nu_t])
             src[fl.i2d_nu_t] = wsel(on, src_nu, src[fl.i2d_nu_t])
+            # axisymmetric add-on for SA (hpp:246-247)
+            if p.ft == fl.FT_AXISYMMETRIC:
+                f_nu = (nu + Snu) * state.dkdy
+                f_l[fl.i2d_nu_t] = wsel(m_sa, f_nu, f_l[fl.i2d_nu_t])
         else:
             f_l[fl.i2d_nu_t] = wsel(m_sa, 0.0, f_l[fl.i2d_nu_t])
             src[fl.i2d_nu_t] = wsel(m_sa, 0.0, src[fl.i2d_nu_t])

@@ -69,14 +69,6 @@ class StepAux:
     is_mu_t_iter: torch.Tensor  # bool: iter+last_iter >= TurbStartIter
 
 
-def _check_pass_path(p):
-    if p.has_d2x or p.has_d2y or p.has_nrbc:
-        raise NotImplementedError(
-            "d2*-NULL soft BCs and non-reflected BCs are not ported")
-    if p.ft != fl.FT_FLAT:
-        raise NotImplementedError("axisymmetric flow is not ported")
-
-
 def pass12(state: SolverState, meta: GridMeta, params: SolverParams,
            aux: StepAux, return_fields: bool = False,
            ctx: StaticCtx = None):
@@ -86,7 +78,6 @@ def pass12(state: SolverState, meta: GridMeta, params: SolverParams,
     ``return_fields`` the diag holds the per-node quantities instead.
     """
     p = params
-    _check_pass_path(p)
     if ctx is None:
         ctx = build_static_ctx(meta, p)
     dt_ = state.dt
@@ -115,13 +106,29 @@ def pass12(state: SolverState, meta: GridMeta, params: SolverParams,
     # Neumann averaging mutates S before the blend (996-1006)
     S_eff = wsel(ctx.ev_avg_x, (S_L * n2 + S_R * n1) * rn_n, S)
     S_eff = wsel(ctx.ev_avg_y, (S_U * n3 + S_D * n4) * rm_m, S_eff)
-    dXX = dSdx_new
-    dYY = dSdy_new
+
+    # 2nd-order soft-BC averaging, statically skipped when no node of the
+    # case carries a d2*-NULL flag (params.has_d2x/y from build_case)
+    if p.has_d2x:
+        dSdx_L, dSdx_R, _, _ = neighbors(dSdx_new, idXl, idXr, idYu, idYd)
+        dXX = wsel(ctx.dx2, (dSdx_L + dSdx_R) * 0.5, dSdx_new)
+    else:
+        dXX = dSdx_new
+    if p.has_d2y:
+        _, _, dSdy_U, dSdy_D = neighbors(dSdy_new, idXl, idXr, idYu, idYd)
+        dYY = wsel(ctx.dy2, (dSdy_U + dSdy_D) * 0.5, dSdy_new)
+    else:
+        dYY = dSdy_new
 
     beta = state.beta
     blend = (dxx * (S_L + S_R) + dyy * (S_U + S_D)) * 0.5
+    if p.ft == fl.FT_AXISYMMETRIC:
+        # the radial flux over the node's j + 1 (a division, as in JAX)
+        y_term = dYY + state.F / ctx.jp1[None]
+    else:
+        y_term = dYY
     next_s = (S_eff * beta + (1.0 - beta) * blend
-              - (dtdx * dXX + dtdy * dYY)
+              - (dtdx * dXX + dtdy * y_term)
               + state.Src * dt_ + state.SrcAdd)
     next_s = wsel(evolve, next_s, S_eff)
 
@@ -136,6 +143,12 @@ def pass12(state: SolverState, meta: GridMeta, params: SolverParams,
 
     beta_min = torch.minimum(torch.tensor(p.beta0, dtype=dtype,
                                           device=S.device), aux.beta_scen)
+    if p.has_nrbc:
+        # per-node override on CT_NONREFLECTED nodes; statically skipped
+        # (beta_min stays a scalar) when the case marked none
+        beta_min = wsel(ctx.nrbc, torch.tensor(p.nrbc_beta0, dtype=dtype,
+                                               device=S.device),
+                        beta_min)[None]
     if p.bff == fl.BFF_L:
         new_beta = torch.minimum(beta_min,
                                  beta_min * beta_min / (beta_min + dd_local))

@@ -42,6 +42,10 @@ _SIGNATURES = {
     # body, consts, cin, cout, scr, idn, ctx, dt, aux, tiles, n_tiles,
     # flags, part_f, stream
     "hf2d_pass12": [_I] + [_P] * 9 + [_I, _P, _P, _P],
+    # the extended forms (fused_step_ext.cu): the same, with the source
+    # field before the stream
+    "hf2d_gfc_ext": [_I] + [_P] * 12 + [_I, _P, _P, _P, _P],
+    "hf2d_pass12_ext": [_I] + [_P] * 9 + [_I, _P, _P, _P, _P],
     # consts, cout, scr, ctx, dt, tiles, n_tiles, stream
     "hf2d_heat": [_P] * 6 + [_I, _P],
     # kernel (8 * stage + body), out (int32 x 6)
@@ -128,7 +132,9 @@ def build(csrc: Path = CSRC) -> tuple[Path, float, str]:
     secs = time.perf_counter() - t0
     shutil.rmtree(obj_dir, ignore_errors=True)
     if proc.returncode != 0:
-        os.unlink(tmp)
+        # nvcc removes its output when the link fails
+        if os.path.exists(tmp):
+            os.unlink(tmp)
         raise RuntimeError(
             f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
             f"{proc.stdout}\n{proc.stderr}")
@@ -145,9 +151,14 @@ def load_library(csrc: Path = CSRC) -> KernelLib:
     path, secs, log = build(Path(csrc))
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        # an earlier tree (load_library of an A/B) may lack later entries;
+        # a wrapper that calls one raises AttributeError there
+        fn = getattr(lib, name, None)
+        if fn is None and Path(csrc).resolve() == CSRC:
+            raise RuntimeError(f"{path} exports no {name}")
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     lib.hf2d_error_string.argtypes = [ctypes.c_int]
     lib.hf2d_error_string.restype = ctypes.c_char_p
     return KernelLib(lib, path, secs, log)

@@ -1,0 +1,215 @@
+// The extended forms of the fused solver iteration for Hopper (sm_90a),
+// float32: the same stages as fused_step.cu on the decks that need more of
+// core/step and core/physics than its flat forms carry:
+//
+//   gfc_ext_kernel<BODY>          gfc of gfc_kernel / gfc_closure_kernel /
+//   gfc_closure_ext_kernel<BODY>  gfc_euler_kernel, on an axisymmetric
+//   gfc_euler_ext_kernel<BODY>    deck (ExtConsts::axi) or one with
+//                                 external sources (::src)
+//   pass12_ext_kernel<BODY>       pass12 of pass12_kernel on such a deck,
+//                                 or on one with d2*-NULL soft BCs or NRBC
+//
+// They replace the same TPU kernel as the flat forms
+// (openhyperflow2d_tpu/ops/pallas_step.py _machinery.make_fused, general
+// body :456-722, spec body :719-720, dual body :702-718, scatter form
+// :506-510), whose body calls core/step.gfc and pass12 with the branches
+// these forms add: the d2 halo of 3 (:79-99), the source plane as a kernel
+// input (:445, 497, 561), and y_r / jp1 rebuilt in the kernel from the
+// window's rows (:431).  What they add (gfc_node's and pass12_node's EXT
+// flag, fused_step.cuh):
+//
+// * axisymmetric flow: gfc computes the node radius y_r = (j + 0.5) dy
+//   from its column (the strips are X strips, so j is the global column on
+//   every path), adds V / y_r to the dilatation and U / y_r to k-eps's
+//   production, and writes the radial fluxes F (the hoop stress in the V
+//   equation, the k, eps and SA add-ons) to 9 more scratch planes
+//   (SCR_F..); pass12 reads F at the node and adds dt / dy F / (j + 1),
+//   a division as in JAX;
+// * external sources: pass12 reads the 9-plane source field at the node
+//   (Src dt of pass 1, every body), and gfc reads its planes 7 and 8, which
+//   stand as the turbulence sources where no closure writes them;
+// * d2*-NULL soft BCs (pass12's general and dual bodies): where dx2 (dy2)
+//   is set, the flux difference is the mean of the two neighbours' own,
+//   which the node computes from their ctx words, flags and the scratch's
+//   A (B) at +-2 (nb_flux_x, nb_flux_y); the strips' halo is 3 a K;
+// * NRBC (the same bodies): beta_min = nrbc_beta0 on CT_NONREFLECTED
+//   nodes.
+//
+// No spec tile holds a d2 or NRBC node (generic_interior_map excludes any
+// node with an extra CT bit), so the spec bodies carry only F and Src.
+// The flat forms keep their symbols and code: a deck without these
+// features launches fused_step.cu's kernels (ops/fused_step.py gfc_ext,
+// pass12_ext).
+//
+// What bounds them on an H100: memory traffic, as the flat forms, plus
+// 36 bytes a node for gfc's F write and 36 for pass12's F read on an
+// axisymmetric deck, and 36 for pass12's Src read and 8 for gfc's on a
+// deck with sources; d2 and NRBC read a few more words at their (boundary)
+// nodes.  A simple kernel first: its speed is for a later change, and
+// PERF.md keeps its times.
+#include "fused_step.cuh"
+
+template <int BODY>
+__global__ void __launch_bounds__(CTA_THREADS)
+gfc_ext_kernel(HF2D_GFC_PARAMS(ExtConsts), const float* __restrict__ srcp) {
+    gfc_tile<BODY, false, false, true>(HF2D_GFC_FORWARD, srcp);
+}
+
+template <int BODY>
+__global__ void __launch_bounds__(CTA_THREADS)
+gfc_closure_ext_kernel(HF2D_GFC_PARAMS(ExtConsts),
+                       const float* __restrict__ srcp) {
+    gfc_tile<BODY, false, true, true>(HF2D_GFC_FORWARD, srcp);
+}
+
+template <int BODY>
+__global__ void __launch_bounds__(CTA_THREADS)
+gfc_euler_ext_kernel(HF2D_GFC_PARAMS(ExtConsts),
+                     const float* __restrict__ srcp) {
+    gfc_tile<BODY, true, false, true>(HF2D_GFC_FORWARD, srcp);
+}
+#undef HF2D_GFC_PARAMS
+#undef HF2D_GFC_FORWARD
+
+// The budget of pass12_kernel: 3 CTAs an SM.
+template <int BODY>
+__global__ void __launch_bounds__(CTA_THREADS, 3)
+pass12_ext_kernel(const ExtConsts c, const float* __restrict__ cin,
+                  float* __restrict__ cout, const float* __restrict__ scr,
+                  const int8_t* __restrict__ idn,
+                  const int32_t* __restrict__ ctxw,
+                  const float* __restrict__ dtp,
+                  const float* __restrict__ aux,
+                  const int32_t* __restrict__ tiles,
+                  const int32_t* __restrict__ flags,
+                  float* __restrict__ part_f,
+                  const float* __restrict__ srcp) {
+    __shared__ float red[TILE_X][NQ];
+    pass12_tile<BODY, true>(c, cin, cout, scr, idn, ctxw, dtp, aux, tiles,
+                            flags, part_f, red, srcp);
+}
+
+// ---------------------------------------------------------------------------
+// C entry points: hf2d_gfc / hf2d_pass12 of fused_step.cu with the source
+// field `src` (9 planes of the grid; read only where ExtConsts::src) last
+// but the stream; `consts` points to an ExtConsts.  No staged body.
+// ---------------------------------------------------------------------------
+extern "C" {
+
+int hf2d_gfc_ext(int body, const void* consts, const void* cin, void* cout,
+                 void* scr, const void* idn, const void* mf,
+                 const void* ctxw, const void* chemf, const void* chemi,
+                 const void* dt, const void* aux, const void* tiles,
+                 int n_tiles, const void* flags, void* part_i,
+                 const void* src, void* stream) {
+    if (n_tiles == 0) return 0;
+    const ExtConsts c = *static_cast<const ExtConsts*>(consts);
+    const dim3 block(TILE_Y, TILE_X);
+    auto s = static_cast<cudaStream_t>(stream);
+#define HF2D_GFC_EXT_ARGS                                                    \
+    c, static_cast<const float*>(cin), static_cast<float*>(cout),           \
+        static_cast<float*>(scr), static_cast<const int8_t*>(idn),          \
+        static_cast<const float*>(mf), static_cast<const int32_t*>(ctxw),   \
+        static_cast<const float*>(chemf),                                   \
+        static_cast<const int32_t*>(chemi), static_cast<const float*>(dt), \
+        static_cast<const float*>(aux), static_cast<const int32_t*>(tiles), \
+        static_cast<const int32_t*>(flags), static_cast<int32_t*>(part_i),  \
+        static_cast<const float*>(src)
+    if (c.euler && c.closure)
+        return static_cast<int>(cudaErrorInvalidValue);
+    else if (c.closure && body == BODY_GENERAL)
+        gfc_closure_ext_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
+            HF2D_GFC_EXT_ARGS);
+    else if (c.closure && body == BODY_SPEC)
+        gfc_closure_ext_kernel<BODY_SPEC><<<n_tiles, block, 0, s>>>(
+            HF2D_GFC_EXT_ARGS);
+    else if (c.closure && body == BODY_DUAL)
+        gfc_closure_ext_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(
+            HF2D_GFC_EXT_ARGS);
+    else if (c.closure)
+        return static_cast<int>(cudaErrorInvalidValue);
+    else if (c.euler && body == BODY_GENERAL)
+        gfc_euler_ext_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
+            HF2D_GFC_EXT_ARGS);
+    else if (c.euler && body == BODY_DUAL)
+        gfc_euler_ext_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(
+            HF2D_GFC_EXT_ARGS);
+    else if (c.euler)
+        return static_cast<int>(cudaErrorInvalidValue);
+    else if (body == BODY_GENERAL)
+        gfc_ext_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
+            HF2D_GFC_EXT_ARGS);
+    else if (body == BODY_SPEC)
+        gfc_ext_kernel<BODY_SPEC><<<n_tiles, block, 0, s>>>(
+            HF2D_GFC_EXT_ARGS);
+    else if (body == BODY_DUAL)
+        gfc_ext_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(
+            HF2D_GFC_EXT_ARGS);
+    else
+        return static_cast<int>(cudaErrorInvalidValue);
+#undef HF2D_GFC_EXT_ARGS
+    return static_cast<int>(cudaGetLastError());
+}
+
+int hf2d_pass12_ext(int body, const void* consts, const void* cin,
+                    void* cout, const void* scr, const void* idn,
+                    const void* ctxw, const void* dt, const void* aux,
+                    const void* tiles, int n_tiles, const void* flags,
+                    void* part_f, const void* src, void* stream) {
+    if (n_tiles == 0) return 0;
+    const ExtConsts c = *static_cast<const ExtConsts*>(consts);
+    const dim3 block(TILE_Y, TILE_X);
+    auto s = static_cast<cudaStream_t>(stream);
+#define HF2D_PASS12_EXT_ARGS                                                 \
+    c, static_cast<const float*>(cin), static_cast<float*>(cout),           \
+        static_cast<const float*>(scr), static_cast<const int8_t*>(idn),    \
+        static_cast<const int32_t*>(ctxw), static_cast<const float*>(dt),   \
+        static_cast<const float*>(aux), static_cast<const int32_t*>(tiles), \
+        static_cast<const int32_t*>(flags), static_cast<float*>(part_f),    \
+        static_cast<const float*>(src)
+    if (body == BODY_GENERAL)
+        pass12_ext_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
+            HF2D_PASS12_EXT_ARGS);
+    else if (body == BODY_SPEC)
+        pass12_ext_kernel<BODY_SPEC><<<n_tiles, block, 0, s>>>(
+            HF2D_PASS12_EXT_ARGS);
+    else if (body == BODY_DUAL)
+        pass12_ext_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(
+            HF2D_PASS12_EXT_ARGS);
+    else
+        return static_cast<int>(cudaErrorInvalidValue);
+#undef HF2D_PASS12_EXT_ARGS
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel of stage 5 (gfc_ext), 6 (gfc_closure_ext), 7 (gfc_euler_ext)
+// or 8 (pass12_ext) and body (BODY_GENERAL, BODY_SPEC or BODY_DUAL; the
+// Euler form has no spec body), for fused_step.cu's hf2d_kernel_info;
+// null for any other.
+const void* hf2d_ext_kernel_fn(int stage, int body) {
+    if (body != BODY_GENERAL && body != BODY_SPEC && body != BODY_DUAL)
+        return nullptr;
+    const bool spec = body == BODY_SPEC, dual = body == BODY_DUAL;
+    switch (stage) {
+        case 5:
+            return spec ? (const void*)gfc_ext_kernel<BODY_SPEC>
+                 : dual ? (const void*)gfc_ext_kernel<BODY_DUAL>
+                        : (const void*)gfc_ext_kernel<BODY_GENERAL>;
+        case 6:
+            return spec ? (const void*)gfc_closure_ext_kernel<BODY_SPEC>
+                 : dual ? (const void*)gfc_closure_ext_kernel<BODY_DUAL>
+                        : (const void*)gfc_closure_ext_kernel<BODY_GENERAL>;
+        case 7:
+            return spec ? nullptr
+                 : dual ? (const void*)gfc_euler_ext_kernel<BODY_DUAL>
+                        : (const void*)gfc_euler_ext_kernel<BODY_GENERAL>;
+        case 8:
+            return spec ? (const void*)pass12_ext_kernel<BODY_SPEC>
+                 : dual ? (const void*)pass12_ext_kernel<BODY_DUAL>
+                        : (const void*)pass12_ext_kernel<BODY_GENERAL>;
+        default:
+            return nullptr;
+    }
+}
+
+}  // extern "C"

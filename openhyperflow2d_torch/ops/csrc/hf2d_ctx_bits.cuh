@@ -91,6 +91,10 @@ constexpr int SCR_SRC_EPS = 28;
 constexpr int SCR_LAM_EFF = 29;   // lam + lam_t after chemistry (gfc<general>)
 constexpr int SCR_SRCADD_E = 30;  // SrcAdd of rhoE (heat_kernel only)
 constexpr int N_SCRATCH = 31;
+// axisymmetric decks: the 9 radial fluxes F after those (gfc's extended
+// form writes them, pass12's reads them at the node)
+constexpr int SCR_F = 31;
+constexpr int N_SCRATCH_AXI = SCR_F + 9;
 
 // ---- meta planes ----------------------------------------------------------
 constexpr int META_IDXL = 0;    // int8 (4, X, Y): idXl, idXr, idYu, idYd

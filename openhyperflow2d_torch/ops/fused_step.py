@@ -106,6 +106,9 @@ N_SCRATCH = 31
 SCR_LAM_EFF = 29    # lam + lam_t after chemistry, written by gfc<general>
 SCR_SRCADD_E = 30   # SrcAdd of rhoE, written by heat_kernel and read by
                     # the unfolded pass12 (the A/B candidates only)
+SCR_F = 31          # axisymmetric decks: the 9 radial fluxes F, written by
+                    # gfc's extended form and read by pass12's
+N_SCRATCH_AXI = SCR_F + 9
 _PRIMS = 18   # carry planes from here on are written by gfc
 
 # the kernels the solver's paths launch (on Euler decks gfc_euler_kernel
@@ -123,7 +126,19 @@ EULER_KERNEL_NAMES = ("gfc_euler_kernel<general>", "gfc_euler_kernel<dual>")
 CLOSURE_KERNEL_NAMES = ("gfc_closure_kernel<spec>",
                         "gfc_closure_kernel<general>",
                         "gfc_closure_kernel<dual>")
-PATH_KERNEL_NAMES = NS_KERNEL_NAMES + EULER_KERNEL_NAMES + CLOSURE_KERNEL_NAMES
+# the extended forms (axisymmetric flow, external sources; pass12's also
+# d2*-NULL soft BCs and NRBC): kernels of their own, so the flat,
+# sourceless decks keep their symbols and code (``gfc_ext``,
+# ``pass12_ext``)
+EXT_KERNEL_NAMES = ("gfc_ext_kernel<spec>", "gfc_ext_kernel<general>",
+                    "gfc_ext_kernel<dual>", "gfc_closure_ext_kernel<spec>",
+                    "gfc_closure_ext_kernel<general>",
+                    "gfc_closure_ext_kernel<dual>",
+                    "gfc_euler_ext_kernel<general>",
+                    "gfc_euler_ext_kernel<dual>", "pass12_ext_kernel<spec>",
+                    "pass12_ext_kernel<general>", "pass12_ext_kernel<dual>")
+PATH_KERNEL_NAMES = (NS_KERNEL_NAMES + EULER_KERNEL_NAMES
+                     + CLOSURE_KERNEL_NAMES + EXT_KERNEL_NAMES)
 KERNEL_NAMES = PATH_KERNEL_NAMES + ("heat_kernel", "gfc_kernel<staged>",
                                     "pass12_kernel<staged>")
 DISPATCH_FORMS = ("lists", "dual")
@@ -169,6 +184,28 @@ def is_closure(params) -> bool:
     return p.sm == fl.SM_NS and (
         any(m != "keps" for m in p.models)
         or ("keps" in p.models and p.tem in KEPS_VARIANTS))
+
+
+def gfc_ext(params) -> bool:
+    """Whether gfc runs its extended form (``*_ext_kernel``): axisymmetric
+    flow (the radial fluxes F into scratch planes SCR_F.., the V / r terms)
+    or external sources (the turbulence sources fall back to the source
+    field's, as fill_node's do)."""
+    return params.ft == fl.FT_AXISYMMETRIC or params.has_ext_src
+
+
+def pass12_ext(params) -> bool:
+    """Whether pass12 runs its extended form (``pass12_ext_kernel``):
+    gfc's (F / (j + 1), Src dt), or d2*-NULL soft BCs or NRBC (the general
+    and dual bodies: no spec tile holds such a node)."""
+    p = params
+    return gfc_ext(p) or p.has_d2x or p.has_d2y or p.has_nrbc
+
+
+def n_scratch(params) -> int:
+    """Planes of the gfc -> pass12 scratch: 31, and 9 for F on
+    axisymmetric decks."""
+    return N_SCRATCH_AXI if params.ft == fl.FT_AXISYMMETRIC else N_SCRATCH
 
 
 def carry_views(carry: torch.Tensor, dt) -> SlimState:
@@ -445,7 +482,10 @@ class KernelConsts(ctypes.Structure):
             "X", "Y", "nby", "has_walls", "fast_math", "bff", "alt_rms",
             "serial_rms", "zeldovich", "heat", "x0", "x1", "heat_fold",
             "euler", "closure", "models", "prandtl_form", "keps_form")] + [
-        (f, ctypes.c_float) for f in ("delta_bl", "esc_l", "smag_cs2")]
+        (f, ctypes.c_float) for f in ("delta_bl", "esc_l", "smag_cs2")] + [
+        (f, ctypes.c_int) for f in ("axi", "src", "d2x", "d2y",
+                                    "nrbc")] + [
+        ("nrbc_beta0", ctypes.c_float)]
 
 
 def closure_forms(p: SolverParams) -> tuple:
@@ -481,7 +521,10 @@ def kernel_consts(p: SolverParams, plan: TilePlan, heat: bool,
         euler=int(is_euler(p)), closure=int(is_closure(p)),
         models=sum(MODEL_BITS[m] for m in p.models), prandtl_form=prandtl,
         keps_form=keps, delta_bl=p.delta_bl, esc_l=0.09 * p.delta_bl,
-        smag_cs2=(0.1 * (p.dx * p.dy) ** 0.5) ** 2)
+        smag_cs2=(0.1 * (p.dx * p.dy) ** 0.5) ** 2,
+        axi=int(p.ft == fl.FT_AXISYMMETRIC), src=int(p.has_ext_src),
+        d2x=int(p.has_d2x), d2y=int(p.has_d2y), nrbc=int(p.has_nrbc),
+        nrbc_beta0=p.nrbc_beta0)
 
 
 def pack_chem(chem: ChemTables, p: SolverParams):
@@ -520,7 +563,10 @@ class FusedStep:
     ``gfc_closure_kernel``; where the closure reads y+ (van Driest,
     Chien) it reads meta plane META_Y_PLUS, which the chunk sets from its
     state (``set_y_plus``), so a ``recalc_y_plus`` between chunks reaches
-    the next one."""
+    the next one.  On an axisymmetric deck or one with external sources
+    gfc runs its extended form (``gfc_ext``), and pass12 runs its own
+    there and on decks with d2*-NULL soft BCs or NRBC (``pass12_ext``);
+    they read the source field the chunk sets (``set_src``)."""
 
     def __init__(self, meta: GridMeta, params: SolverParams,
                  chem: ChemTables, plan: TilePlan, dispatch: str, ctx):
@@ -536,6 +582,8 @@ class FusedStep:
         self.euler = is_euler(p)
         self.closure = is_closure(p)
         self.has_y_plus = needs_y_plus(p)
+        self.gfc_ext, self.pass12_ext = gfc_ext(p), pass12_ext(p)
+        self.axi = p.ft == fl.FT_AXISYMMETRIC
         self.idn = torch.stack([meta.idXl, meta.idXr, meta.idYu, meta.idYd])
         # the lam_t plane on Euler decks; y+ after a (zero) lam_t plane
         n_more = META_Y_PLUS + 1 - META_LAM_T if self.has_y_plus \
@@ -547,6 +595,8 @@ class FusedStep:
         self.chemf, self.chemi = pack_chem(chem, p)
         self.zero_src = torch.zeros((fl.NUM_EQ, p.MaxX, p.MaxY),
                                     dtype=p.torch_dtype, device=meta.CT.device)
+        # the external source field (9, X, Y) the extended forms read
+        self.src = self.zero_src
         self.consts = kernel_consts(p, plan, self.has_heat)
         # pass12 reading heat_kernel's SrcAdd plane (launch_pass12's fold)
         self.consts_unfolded = kernel_consts(p, plan, self.has_heat, False)
@@ -571,18 +621,28 @@ class FusedStep:
         if self.has_y_plus:
             self.mf[META_Y_PLUS].copy_(y_plus)
 
+    def set_src(self, src: torch.Tensor) -> None:
+        """The chunk's external source field (9, X, Y) on a deck with
+        sources (JAX pallas_step.py:445-497); the zeros elsewhere."""
+        if self.params.has_ext_src:
+            self.src = src.to(self.zero_src.dtype).contiguous()
+
     def gfc_name(self, body: str) -> str:
         """The name of gfc's kernel instantiation for ``body``."""
-        kernel = ("gfc_euler_kernel" if self.euler else
-                  "gfc_closure_kernel" if self.closure else "gfc_kernel")
-        return f"{kernel}<{body}>"
+        kernel = ("gfc_euler" if self.euler else
+                  "gfc_closure" if self.closure else "gfc")
+        return f"{kernel}{'_ext' if self.gfc_ext else ''}_kernel<{body}>"
+
+    def pass12_name(self, body: str) -> str:
+        """The name of pass12's kernel instantiation for ``body``."""
+        return f"pass12{'_ext' if self.pass12_ext else ''}_kernel<{body}>"
 
     def iteration_launches(self) -> list:
         """The kernels one iteration launches, in order (no launch needs
         CUDA to be planned)."""
         bodies = self._bodies()
         return ([self.gfc_name(b) for b in bodies]
-                + [f"pass12_kernel<{b}>" for b in bodies])
+                + [self.pass12_name(b) for b in bodies])
 
     # ------------------------------------------------------------------
     # wrappers
@@ -634,17 +694,23 @@ class FusedStep:
             raise NotImplementedError(
                 f"gfc_euler_kernel has no {body!r} body (an Euler deck's "
                 f"gfc runs the general body's Euler form)")
-        if self.closure and body == "staged":
+        if (self.closure or self.gfc_ext) and body == "staged":
             raise NotImplementedError(
-                "gfc_closure_kernel has no staged body (the staged form is "
-                "an A/B candidate of the standard k-eps decks)")
-        self._check_cuda(cin, cout, scr, dt, aux, self.mf, self.chemf)
+                f"{self.gfc_name(body)} has no staged body (the staged form "
+                f"is an A/B candidate of the standard k-eps decks)")
+        self._check_cuda(cin, cout, scr, dt, aux, self.mf, self.chemf,
+                         self.src)
         tiles, n_tiles = self.plan.launch_grid(body)
-        self._launch("hf2d_gfc", self.gfc_name(body), (
-            _BODY_CODE[body], ctypes.addressof(self.consts), _ptr(cin),
-            _ptr(cout), _ptr(scr), _ptr(self.idn), _ptr(self.mf),
-            _ptr(self.ctxw), _ptr(self.chemf), _ptr(self.chemi), _ptr(dt),
-            _ptr(aux), tiles, n_tiles, _ptr(self.plan.flags), _ptr(part_i)))
+        args = (_BODY_CODE[body], ctypes.addressof(self.consts), _ptr(cin),
+                _ptr(cout), _ptr(scr), _ptr(self.idn), _ptr(self.mf),
+                _ptr(self.ctxw), _ptr(self.chemf), _ptr(self.chemi),
+                _ptr(dt), _ptr(aux), tiles, n_tiles, _ptr(self.plan.flags),
+                _ptr(part_i))
+        if self.gfc_ext:
+            self._launch("hf2d_gfc_ext", self.gfc_name(body),
+                         args + (_ptr(self.src),))
+        else:
+            self._launch("hf2d_gfc", self.gfc_name(body), args)
 
     def launch_pass12(self, body, cin, cout, scr, dt, aux, part_f,
                       part=None, fold=True):
@@ -653,13 +719,22 @@ class FusedStep:
         body reads the heat source from scratch plane SCR_SRCADD_E, which
         heat_kernel wrote (the separate form, for the A/B; the staged body
         always reads it)."""
-        self._check_cuda(cin, cout, scr, dt, aux, part_f)
+        if self.pass12_ext and body == "staged":
+            raise NotImplementedError(
+                "pass12_ext_kernel has no staged body (the staged form is an "
+                "A/B candidate of the standard k-eps decks)")
+        self._check_cuda(cin, cout, scr, dt, aux, part_f, self.src)
         tiles, n_tiles = self.plan.launch_grid(body, part)
         consts = self.consts if fold else self.consts_unfolded
-        self._launch("hf2d_pass12", f"pass12_kernel<{body}>", (
-            _BODY_CODE[body], ctypes.addressof(consts), _ptr(cin),
-            _ptr(cout), _ptr(scr), _ptr(self.idn), _ptr(self.ctxw), _ptr(dt),
-            _ptr(aux), tiles, n_tiles, _ptr(self.plan.flags), _ptr(part_f)))
+        args = (_BODY_CODE[body], ctypes.addressof(consts), _ptr(cin),
+                _ptr(cout), _ptr(scr), _ptr(self.idn), _ptr(self.ctxw),
+                _ptr(dt), _ptr(aux), tiles, n_tiles, _ptr(self.plan.flags),
+                _ptr(part_f))
+        if self.pass12_ext:
+            self._launch("hf2d_pass12_ext", self.pass12_name(body),
+                         args + (_ptr(self.src),))
+        else:
+            self._launch("hf2d_pass12", self.pass12_name(body), args)
 
     def launch_heat(self, cout, scr, dt):
         """heat_kernel over the heat tiles (CUDA tensors)."""
@@ -721,7 +796,7 @@ class FusedStep:
         return self.mf[META_Y_PLUS] if self.has_y_plus else None
 
     def gfc_plain(self, cin, cout, scr, dt, aux, part_i):
-        full = expand(carry_views(cin, dt), self.params, self.zero_src,
+        full = expand(carry_views(cin, dt), self.params, self.src,
                       y_plus=self.y_plus(), lam_t=self.lam_t())
         out, dt_field, unstable = gfc(full, self.meta, self.params,
                                       self.chem, self._aux(aux),
@@ -730,7 +805,10 @@ class FusedStep:
         scr[0:9] = out.S
         scr[9:18] = out.A
         scr[18:27] = out.B
-        scr[27:29] = out.Src[fl.i2d_k:]   # k and eps, or SA's nu_t
+        # k and eps, or SA's nu_t (elsewhere the source field's, or 0)
+        scr[27:29] = out.Src[fl.i2d_k:]
+        if self.axi:
+            scr[SCR_F:SCR_F + 9] = out.F
         if self.has_heat:
             # what the heat stage reads (core/physics.py): lam + lam_t of
             # gfc's output, lam after chemistry and lam_t from the CP
@@ -763,9 +841,11 @@ class FusedStep:
         form).  ``part``: compute the whole grid, write the nodes and partials
         of that part's tiles only (what its launches write)."""
         p = self.params
-        src = torch.cat([self.zero_src[:fl.i2d_k], scr[27:29]])
+        src = torch.cat([self.src[:fl.i2d_k], scr[27:29]])
         state = expand(carry_views(cin, dt), p, src).replace(
             S=scr[0:9], A=scr[9:18], B=scr[18:27])
+        if self.axi:
+            state = state.replace(F=scr[SCR_F:SCR_F + 9])
         if self.has_heat:
             heat = (self.heat_source_plain(cout, scr, dt)
                     if heat_src is None else heat_src)
@@ -891,8 +971,6 @@ class KernelChunk:
     def __init__(self, meta, params, chem, beta_tab, cfl_tab, turb_start,
                  spec_map=None, dispatch="lists", fuse_iters=1):
         p = params
-        if p.has_ext_src:
-            raise NotImplementedError("external sources are not ported")
         if int(fuse_iters) < 1:
             raise ValueError(f"fuse_iters must be >= 1, got {fuse_iters}")
         self.K = int(fuse_iters)
@@ -933,9 +1011,10 @@ class KernelChunk:
         ctx = step.ctx
         step.set_lam_t(state.lam_t)
         step.set_y_plus(state.y_plus)
+        step.set_src(src_ext)
         ca, diag0, raw, kaux = self.prologue(state, n_iters, start_iter)
         cb = torch.empty_like(ca)
-        scr = torch.empty((N_SCRATCH,) + ca.shape[1:], dtype=dtype,
+        scr = torch.empty((n_scratch(p),) + ca.shape[1:], dtype=dtype,
                           device=ca.device)
         # slot i holds iteration i of a block
         part_f = torch.zeros((self.K, self.plan.n_tiles, 27), dtype=dtype,
@@ -957,7 +1036,7 @@ class KernelChunk:
                            dt.expand(kk)))
 
         # epilogue: the final iteration's gfc on the whole grid
-        full = expand(carry_views(ca, dt), p, step.zero_src,
+        full = expand(carry_views(ca, dt), p, step.src,
                       step.y_plus(), lam_t_const(state, p))
         out, dt_new, unstable_last = gfc(full, meta, p, self.chem,
                                          self.aux_at(start_iter + n_iters - 1),

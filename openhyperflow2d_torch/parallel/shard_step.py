@@ -54,11 +54,10 @@ from ..core.state import GridMeta, SolverState
 from ..core.static_ctx import build_static_ctx, generic_interior_map
 from ..core.step import (expand, gfc, has_heat_stage, lead, make_aux,
                          needs_y_plus, pass12, shrink, trail)
-from ..ops.fused_step import (N_SCRATCH, FusedStep, carry_views,
-                              chunk_diags, fuse_blocks, halo_depth,
-                              heat_node_map, is_euler, local_dt,
-                              make_tile_plan, pack_carry, rms_of, serial_dt,
-                              tile_totals)
+from ..ops.fused_step import (FusedStep, carry_views, chunk_diags,
+                              fuse_blocks, halo_depth, heat_node_map,
+                              is_euler, local_dt, make_tile_plan, n_scratch,
+                              pack_carry, rms_of, serial_dt, tile_totals)
 
 META_FIELDS = [f.name for f in dataclasses.fields(GridMeta)
                if f.name not in ("dx_map", "dy_map")]
@@ -87,8 +86,6 @@ class _StripChunk:
         if not p.uniform_mesh:
             raise NotImplementedError("the strip path supports uniform "
                                       "meshes only")
-        if p.has_ext_src:
-            raise NotImplementedError("external sources are not ported")
         if int(fuse_iters) < 1:
             raise ValueError(f"fuse_iters must be >= 1, got {fuse_iters}")
         self.params, self.chem, self.comm = p, chem, comm
@@ -114,6 +111,7 @@ class _StripChunk:
                          for m in self.meta_ext]
         self.zero_src = torch.zeros((9, self.Xext, p.MaxY),
                                     dtype=p.torch_dtype, device=dev)
+        self._src_key, self._src = None, [self.zero_src] * len(comm.shards)
 
     # ------------------------------------------------------------------
     # layout
@@ -151,6 +149,23 @@ class _StripChunk:
 
     def crop(self, a):
         return a[..., self.halo:self.halo + self.X_loc, :]
+
+    def src_ext(self, src) -> list:
+        """Each strip's external source field over its extended strip, its
+        halos the neighbours' columns around the ring (``ext(src_loc)``,
+        shard_step.py:195, 351, 424-427), on the communicator's device;
+        the zeros on a deck without sources.  ``src``: the whole grid's
+        (9, X, Y) field on any device; sliced again only when another
+        tensor comes (Solver.set_sources makes a new one)."""
+        if not self.params.has_ext_src or src is self._src_key:
+            return self._src
+        self._src = [
+            self._pad(src).index_select(-2, self._cols(
+                k, -self.halo, self.X_loc + self.halo).to(src.device)).to(
+                    device=self.comm.device, dtype=self.params.torch_dtype)
+            for k in self.comm.shards]
+        self._src_key = src
+        return self._src
 
     def scatter(self, state: SolverState) -> StripState:
         """The strips of a whole-grid state (on any device), on the
@@ -294,21 +309,23 @@ class _StripChunk:
         return outs, {"RMS": rms, "DD_max": ddm, "dt_used": dt}
 
     def epilogue(self, ext_carry, dt, state: StripState, it: int,
-                 lam=None, yp=None):
+                 lam=None, yp=None, src=None):
         """gfc of iteration ``it`` (with its heat stage) on each extended
-        carry, halos filled; ``lam``, ``yp``: the strips' ``lam_ext`` and
-        ``yp_ext`` (None: made here); returns (StripState, dt_new,
-        unstable)."""
+        carry, halos filled; ``lam``, ``yp``, ``src``: the strips'
+        ``lam_ext``, ``yp_ext`` and ``src_ext`` (None: made here, src the
+        zeros); returns (StripState, dt_new, unstable)."""
         if lam is None:
             lam = self.lam_ext(state)
         if yp is None:
             yp = self.yp_ext(state)
+        if src is None:
+            src = [self.zero_src] * len(ext_carry)
         outs, dts, uns = [], [], []
         aux = self.aux_at(it)
-        for c, m, ctx, lam_t, y_plus in zip(ext_carry, self.meta_ext,
-                                            self.ctx, lam, yp):
-            full = expand(carry_views(c, dt), self.p_loc, self.zero_src,
-                          y_plus, lam_t)
+        for c, m, ctx, lam_t, y_plus, src_k in zip(
+                ext_carry, self.meta_ext, self.ctx, lam, yp, src):
+            full = expand(carry_views(c, dt), self.p_loc, src_k, y_plus,
+                          lam_t)
             out, dt_field, unstable = gfc(full, m, self.p_loc, self.chem,
                                           aux, return_fields=True, ctx=ctx)
             outs.append(out)
@@ -352,16 +369,16 @@ class ShardChunk(_StripChunk):
         own, diag0 = self.prologue(state, start_iter)
         lam = self.lam_ext(state, self.halo_ablate)
         yp = self.yp_ext(state, self.halo_ablate)
+        srcs = self.src_ext(src_ext)
         dt = diag0["dt_used"]
         rms, ddm, dts, uns = [], [], [], []
         for k in range(start_iter, start_iter + n_iters - 1):
             ext = self.extend(own, self.halo_ablate)
             aux_g, aux_p = self.aux_at(k), self.aux_at(k + 1)
             outs, local = [], []
-            for c, m, ctx, lam_t, y_plus in zip(ext, self.loop_meta,
-                                                self.loop_ctx, lam, yp):
-                full = expand(carry_views(c, dt), pl, self.zero_src, y_plus,
-                              lam_t)
+            for c, m, ctx, lam_t, y_plus, src_k in zip(
+                    ext, self.loop_meta, self.loop_ctx, lam, yp, srcs):
+                full = expand(carry_views(c, dt), pl, src_k, y_plus, lam_t)
                 out, dt_field, unstable = gfc(full, m, pl, self.chem, aux_g,
                                               return_fields=True, ctx=ctx)
                 outs.append((out, unstable))
@@ -382,7 +399,7 @@ class ShardChunk(_StripChunk):
             dts.append(dt)
             uns.append(self.any_own([u for _, u in outs]))
         out, _, unstable_last = self.epilogue(
-            self.extend(own), dt, state, start_iter + n_iters - 1)
+            self.extend(own), dt, state, start_iter + n_iters - 1, src=srcs)
         return out, {"RMS": lead(diag0["RMS"], rms),
                      "dt_used": lead(diag0["dt_used"], dts),
                      "DD_max": lead(diag0["DD_max"], ddm),
@@ -474,16 +491,18 @@ class KernelShardChunk(_StripChunk):
         p, dtype = self.params, self.params.torch_dtype
         ca, diag0, raw, kaux = self.start(state, n_iters, start_iter)
         lam, yp = self.lam_ext(state), self.yp_ext(state)
-        for step, lam_t, y_plus in zip(self.steps, lam, yp):
+        srcs = self.src_ext(src_ext)
+        for step, lam_t, y_plus, src_k in zip(self.steps, lam, yp, srcs):
             if lam_t is not None:
                 step.set_lam_t(lam_t)
             if y_plus is not None:
                 step.set_y_plus(y_plus)
+            step.set_src(src_k)
         dev, Y, K = self.comm.device, p.MaxY, self.K
         cb = [torch.empty_like(c) for c in ca]
         scr, part_f, part_i = [], [], []
         for step in self.steps:
-            scr.append(torch.empty((N_SCRATCH, self.Xext, Y), dtype=dtype,
+            scr.append(torch.empty((n_scratch(p), self.Xext, Y), dtype=dtype,
                                    device=dev))
             # slot i holds iteration i of a block
             part_f.append(torch.zeros((K, step.plan.n_tiles, 27),
@@ -523,7 +542,7 @@ class KernelShardChunk(_StripChunk):
 
         out, _, unstable_last = self.epilogue(ca, dt, state,
                                               start_iter + n_iters - 1, lam,
-                                              yp)
+                                              yp, srcs)
         return out, chunk_diags(diag0, blocks, unstable_last)
 
 

@@ -55,16 +55,8 @@ def check_supported(params) -> None:
     port does not do yet (nothing computes a partial result)."""
     p = params
     missing = []
-    if p.ft != fl.FT_FLAT:
-        missing.append("axisymmetric flow")
     if not p.uniform_mesh:
         missing.append("non-uniform meshes")
-    if p.has_d2x or p.has_d2y:
-        missing.append("d2*-NULL soft boundary conditions")
-    if p.has_nrbc:
-        missing.append("non-reflected boundary conditions")
-    if p.has_ext_src:
-        missing.append("external sources")
     if p.isSrcAdd:
         missing.append("moving-wall sources")
     if p.chemistry not in (fl.CRM_ZELDOVICH, fl.CRM_NO_REACTIONS):
@@ -240,9 +232,24 @@ class Solver:
                 overlap=overlap, fuse_iters=self.fuse_iters)
         else:
             self._chunk_fn = make_shard_chunk(*args)
-        self.meta = self.fused = self._src_ext = None
+        self.meta = self.fused = None
+        # the whole grid's sources stay on the host: each chunk takes its
+        # strips' slices (with their halos) to the device
+        self._src_ext = torch.tensor(case.grid.Src, dtype=p.torch_dtype)
         host = state_from_grid(case.grid, p, case.dt0, device="cpu")
         self.state = self._chunk_fn.fill_init(self._chunk_fn.scatter(host))
+
+    def set_sources(self, src):
+        """Update the volumetric source field (SetSources2D re-applied each
+        outer cycle, deeps2d_core.cpp:1716-1722; JAX runner.py:169-182):
+        the (9, X, Y) ``src`` (numpy or torch) that every later chunk
+        reads, on the strip path each strip's slice with its halos."""
+        dev = self.device if self.comm is None else "cpu"
+        src = src if isinstance(src, torch.Tensor) else np.asarray(src)
+        # a copy: a later apply_sources on the grid's array must not reach
+        # the solver before the next set_sources
+        self._src_ext = torch.as_tensor(src).to(
+            dtype=self.params.torch_dtype, device=dev, copy=True)
 
     def run_iters(self, n_iters: int):
         """Run ``n_iters`` inner iterations; returns the stacked diagnostics

@@ -75,12 +75,18 @@ def test_check_supported_accepts_euler_decks(case):
 
 
 @pytest.mark.parametrize("change, words", [
-    ({"ft": fl.FT_AXISYMMETRIC}, "axisymmetric"),
-    ({"has_nrbc": True}, "non-reflected"),
-    ({"has_d2y": True}, "soft boundary conditions"),
+    # axisymmetric flow, NRBC and d2*-NULL soft BCs are ported on Euler
+    # decks too: accepted (words None); a non-uniform mesh is still refused
+    ({"ft": fl.FT_AXISYMMETRIC}, None),
+    ({"has_nrbc": True}, None),
+    ({"has_d2y": True}, None),
+    ({"uniform_mesh": False}, "non-uniform meshes"),
 ])
 def test_check_supported_still_refuses_the_rest(change, words):
     p = port_case(jinit.build_case(DECKS["channel"]())).params
+    if words is None:
+        check_supported(dataclasses.replace(p, **change))
+        return
     with pytest.raises(NotImplementedError, match=words) as e:
         check_supported(dataclasses.replace(p, **change))
     assert "Euler" not in str(e.value)

@@ -11,10 +11,11 @@ tests/test_torch_kernel_path_heat.py (``reacting_rans_deck(48, 40,
 wall_bottom=True, adiabatic=False, with_step=True)`` and
 ``combustor_deck(64, 256, with_step=True, adiabatic=False)``) and on the
 Euler cylinders with conducting walls (``cylinders_deck(64, 48)``,
-isAdiabaticWall=0: every tile general, lam_t the chunk-constant plane) and
-on the 64x256 step deck with the RNG k-eps variant (TurbExtModel=8: gfc in
-the closures' form, gfc_closure_kernel), each as a single domain and as
-``LocalComm(2, "cpu")`` X strips:
+isAdiabaticWall=0: every tile general, lam_t the chunk-constant plane), on
+the 64x256 step deck with the RNG k-eps variant (TurbExtModel=8: gfc in
+the closures' form, gfc_closure_kernel) and on the 64x256 step deck with
+FlowType=1 (gfc and pass12 in their extended forms, F in the scratch),
+each as a single domain and as ``LocalComm(2, "cpu")`` X strips:
 
 * (a) gfc_plain, then heat_plain before pass12_plain and again after it,
   on the same buffers: the two SrcAdd planes are bitwise equal, and
@@ -47,9 +48,10 @@ import torch
 
 from openhyperflow2d_torch.examples import (combustor_deck, cylinders_deck,
                                             reacting_rans_deck)
-from openhyperflow2d_torch.ops.fused_step import (DISPATCH_FORMS, N_SCRATCH,
+from openhyperflow2d_torch.ops.fused_step import (DISPATCH_FORMS,
                                                   SCR_LAM_EFF, SCR_SRCADD_E,
-                                                  TILE, carry_views, scan_dt)
+                                                  TILE, carry_views,
+                                                  n_scratch, scan_dt)
 from openhyperflow2d_torch.parallel.comm import LocalComm
 from openhyperflow2d_torch.solver.init import build_case
 from openhyperflow2d_torch.solver.runner import Solver
@@ -61,6 +63,8 @@ DECKS = {
         64, 256, with_step=True, adiabatic=False),
     "euler_cylinders_heat": lambda: _conducting(cylinders_deck(64, 48)),
     "combustor_step_heat_rng": lambda: _rng(combustor_deck(
+        64, 256, with_step=True, adiabatic=False)),
+    "combustor_step_heat_axisym": lambda: _axisym(combustor_deck(
         64, 256, with_step=True, adiabatic=False)),
 }
 
@@ -75,6 +79,13 @@ def _rng(deck):
     """The deck with the RNG k-eps variant: gfc runs gfc_closure_kernel's
     plain version, pass12 the folded heat stage as on the standard deck."""
     deck.data["TurbExtModel"] = "8"
+    return deck
+
+
+def _axisym(deck):
+    """The deck with FlowType=1: gfc and pass12 run their extended forms'
+    plain versions (the F planes), pass12 the folded heat stage."""
+    deck.data["FlowType"] = "1"
     return deck
 LAYOUTS = ("single", "strips")
 TG = 21   # carry plane of Tg (CARRY_FIELDS)
@@ -110,12 +121,14 @@ def steps_and_inputs(solver):
     return [(st, c, dt, kaux) for st, c in zip(chunk.steps, ca)]
 
 
-def buffers(ca, plan):
-    """NaN-filled cout and scratch (an unwritten value shows), zeroed
-    per-tile partials."""
+def buffers(ca, step):
+    """NaN-filled cout and scratch (an unwritten value shows; the F planes
+    of an axisymmetric deck after the 31), zeroed per-tile partials."""
     nan = float("nan")
+    plan = step.plan
     return (torch.full_like(ca, nan),
-            torch.full((N_SCRATCH,) + ca.shape[1:], nan, dtype=ca.dtype),
+            torch.full((n_scratch(step.params),) + ca.shape[1:], nan,
+                       dtype=ca.dtype),
             torch.zeros((plan.n_tiles, 2), dtype=torch.int32),
             torch.zeros((plan.n_tiles, 27), dtype=ca.dtype))
 
@@ -142,7 +155,7 @@ def test_fold_is_legal(deck, layout):
     before pass12 equals heat computed after it, and the folded pass12
     gives the separate form's bits."""
     for step, ca, dt, kaux in heat_steps(deck, layout):
-        cout, scr, part_i, part_f = buffers(ca, step.plan)
+        cout, scr, part_i, part_f = buffers(ca, step)
         step.gfc_plain(ca, cout, scr, dt, kaux[0], part_i)
         step.heat_plain(cout, scr, dt)
         before = scr[SCR_SRCADD_E].clone()

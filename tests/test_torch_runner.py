@@ -55,16 +55,17 @@ SUPPORTED = tstate.SolverParams(MaxX=8, MaxY=8, dx=1e-3, dy=1e-3,
 
 
 @pytest.mark.parametrize("change, words", [
-    # Euler decks, every closure and the k-eps variants are ported:
-    # accepted (words None)
+    # Euler decks, every closure, the k-eps variants, axisymmetric flow,
+    # d2*-NULL soft BCs, NRBC and external sources are ported: accepted
+    # (words None)
     ({"sm": fl.SM_EULER}, None),
     ({"models": ("keps", "sa")}, None),
     ({"tem": fl.TEM_k_eps_Chien}, None),
-    ({"ft": fl.FT_AXISYMMETRIC}, "axisymmetric"),
+    ({"ft": fl.FT_AXISYMMETRIC}, None),
     ({"uniform_mesh": False}, "non-uniform meshes"),
-    ({"has_d2y": True}, "soft boundary conditions"),
-    ({"has_nrbc": True}, "non-reflected"),
-    ({"has_ext_src": True}, "external sources"),
+    ({"has_d2y": True}, None),
+    ({"has_nrbc": True}, None),
+    ({"has_ext_src": True}, None),
     ({"isSrcAdd": True}, "moving-wall sources"),
     ({"chemistry": 2}, "chemistry model 2"),
 ])

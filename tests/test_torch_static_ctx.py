@@ -140,4 +140,5 @@ def test_header_layouts_match_python():
         o += n
     assert const("N_CARRY") == o == fs.N_CARRY
     assert const("N_SCRATCH") == fs.N_SCRATCH
+    assert const("SCR_F") == fs.SCR_F   # the F planes of axisymmetric decks
     assert (const("TILE_X"), const("TILE_Y")) == fs.TILE

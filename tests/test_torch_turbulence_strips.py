@@ -162,10 +162,12 @@ def test_no_boundary_layer_runs_prandtls_length(tem):
 
 
 def test_consts_struct_matches_kernel_consts():
-    """KernelConsts is struct Consts, then ClosureConsts' own fields."""
-    text = (CSRC / "fused_step.cu").read_text()
+    """KernelConsts is struct Consts, then ClosureConsts' own fields, then
+    ExtConsts' (the structs of fused_step.cuh)."""
+    text = (CSRC / "fused_step.cuh").read_text()
     names = []
-    for struct in (r"struct Consts", r"struct ClosureConsts : Consts"):
+    for struct in (r"struct Consts", r"struct ClosureConsts : Consts",
+                   r"struct ExtConsts : ClosureConsts"):
         body = re.search(struct + r" \{(.*?)\n\};", text, re.S).group(1)
         body = re.sub(r"//[^\n]*", "", body)
         for decl in body.split(";"):
@@ -179,7 +181,7 @@ def test_consts_struct_matches_kernel_consts():
 
 def test_header_constants_match_python():
     text = (CSRC / "hf2d_ctx_bits.cuh").read_text() + (
-        CSRC / "fused_step.cu").read_text()
+        CSRC / "fused_step.cuh").read_text()
 
     def const(name):
         return int(re.search(rf"\b{name} = (\d+)[;,]", text).group(1))

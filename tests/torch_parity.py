@@ -270,3 +270,142 @@ def check_kernel_cycles(name, K, tols):
             np.testing.assert_array_equal(gd[key], wd[key], key)
     if name in Y_PLUS_CLOSURES:
         assert got["y_plus"].max() > 0 and got["mu_t"].max() > 0
+
+
+# The axisymmetric, source, d2*-NULL and NRBC decks of
+# tests/test_torch_axisym*.py, float64, each built by the JAX package:
+# (deck, iterations of a chunk).  SA's chunk is 3 iterations (its
+# impulsive start flags Tg<0 soon after, in JAX too).
+def jax_nrbc_d2_axisym_deck():
+    """The JAX package's tests/test_static_ctx.py:25-37 deck: an
+    axisymmetric k-eps channel with an NRBC (FARFIELD) top and d2*-NULL
+    soft BCs on the outflow and the bottom."""
+    from openhyperflow2d_tpu.examples import channel_deck
+    d = channel_deck(nx=48, ny=40, problem_type=1, turb_model=4,
+                     turb_ext_model=0, flow_type=1)
+    d.data["Contour1.Bound1.Cond"] = "NT_FARFIELD_2D"
+    d.data["Contour1.Bound2.Cond"] = ("NT_D2X_2D, TCT_dkdx_NULL_2D, "
+                                      "TCT_depsdx_NULL_2D")
+    d.data["Contour1.Bound3.Cond"] = ("NT_D0Y_2D, NT_D2Y_2D, "
+                                      "TCT_k_CONST_2D, TCT_eps_CONST_2D")
+    return d
+
+
+def axisymmetric(deck):
+    """The deck with FlowType=1."""
+    deck.data["FlowType"] = "1"
+    return deck
+
+
+def _axisym_decks():
+    from openhyperflow2d_tpu import examples as jex
+    return {
+        "nrbc_d2": (jax_nrbc_d2_axisym_deck, 6),
+        "scramjet": (lambda: jex.scramjet_deck(64, 48), 6),
+        "combustor": (lambda: axisymmetric(jex.combustor_deck(64, 256)), 6),
+        "sa": (lambda: axisymmetric(jax_wall_channel("sa")), 3),
+        "bubble": (lambda: axisymmetric(jex.bubble_deck(48, 40)), 6),
+    }
+
+
+# the decks whose JAX reference runs op by op (jax.disable_jit): on the
+# axisymmetric bubble JAX's compiled chunk parts from its own op-by-op run
+# by 1.5e-10 of U's scale at iteration 2 (a branch taken apart at one
+# node, as combustor_deck(64, 384) does, ROADMAP's limits of the
+# comparison), while the port and the op-by-op run agree below 1e-13
+OP_BY_OP = ("bubble",)
+
+
+AXISYM_DECKS = ("nrbc_d2", "scramjet", "combustor", "sa", "bubble")
+
+
+@functools.lru_cache(maxsize=None)
+def jax_axisym_case(name):
+    from openhyperflow2d_tpu.solver import init as jinit
+    return jinit.build_case(_axisym_decks()[name][0]())
+
+
+@functools.lru_cache(maxsize=None)
+def eager_axisym_runs(name):
+    """JAX's XLA path and the port's eager path, float64, on the axisym
+    deck ``name``: ``init`` = (JAX fields, port fields) after the initial
+    FillNode2D; ``chunk`` = (JAX fields, JAX diags, port fields, port
+    diags) after one chunk of the deck's iterations."""
+    import contextlib
+
+    import jax
+
+    from openhyperflow2d_tpu.solver.runner import Solver as JSolver
+    from openhyperflow2d_torch.solver.runner import Solver
+    jc = jax_axisym_case(name)
+    n = _axisym_decks()[name][1]
+    with (jax.disable_jit() if name in OP_BY_OP
+          else contextlib.nullcontext()):
+        js = JSolver(jc)
+        w0 = np_copy(js.state)
+        wd = {k: np.asarray(v) for k, v in js.run_iters(n).items()}
+        want = np_copy(js.state)
+    ts = Solver(port_case(jc), device="cpu", use_kernels=False)
+    init = (w0, ts.host_state())
+    gd = ts.run_iters(n)
+    return init, (want, wd, ts.host_state(), gd)
+
+
+def check_axisym_eager(name, tol=1e-10):
+    """The initial fill and the chunk of both packages: every field (F
+    and Src included) to ``tol`` of its plane's scale, beta by beta_err,
+    RMS and dt_used to rtol ``tol``, the unstable rows exactly."""
+    (w0, g0), (want, wd, got, gd) = eager_axisym_runs(name)
+    errs = {f: scaled_err(w0, g0, f) for f in INIT_FIELDS}
+    assert max(errs.values()) < tol, ("init", errs)
+    errs = {f: scaled_err(want, got, f)
+            for f in CHUNK_FIELDS + ["F", "Src", "A", "B"]}
+    assert max(errs.values()) < tol, ("chunk", errs)
+    assert beta_err(want, got) < 1.0
+    for key in ("RMS", "dt_used"):
+        assert rel_diff(gd[key], wd[key]) < tol, key
+    np.testing.assert_array_equal(gd["unstable"], wd["unstable"])
+    assert not gd["unstable"].any()
+
+
+@functools.lru_cache(maxsize=None)
+def pallas_axisym_cycle(name, K):
+    """(JAX fields, diags) after one cycle of the axisym deck ``name``'s
+    iterations on JAX's Pallas path in interpret mode at fuse_iters=K,
+    float64."""
+    import contextlib
+
+    import jax
+
+    from openhyperflow2d_tpu.solver.runner import Solver as JSolver
+    jc = jax_axisym_case(name)
+    jc.Nstep = _axisym_decks()[name][1]
+    with (jax.disable_jit() if name in OP_BY_OP
+          else contextlib.nullcontext()):
+        js = JSolver(jc, use_pallas=True, pallas_fuse=K,
+                     pallas_tile=(16, 128))
+        wd, _ = js.run_cycle()
+        return np_copy(js.state), {k: np.asarray(v) for k, v in wd.items()}
+
+
+def check_axisym_kernel(name, K, tol=1e-10):
+    """The port's kernel path (the kernels' plain versions on CPU tensors,
+    fuse_iters=K, the extended forms) against ``pallas_axisym_cycle``:
+    every field to ``tol`` of its plane's scale, RMS and dt_used to rtol
+    ``tol``, beta by beta_err where the equation is above 1e-4 of its
+    scale, the unstable and dt_overrun rows exactly."""
+    from openhyperflow2d_torch.solver.runner import Solver
+    want, wd = pallas_axisym_cycle(name, K)
+    jc = jax_axisym_case(name)
+    ts = Solver(port_case(jc), device="cpu", use_kernels=True, fuse_iters=K)
+    ts.case.Nstep = _axisym_decks()[name][1]
+    assert all("_ext_kernel" in n for n in ts.fused.iteration_launches())
+    gd, _ = ts.run_cycle()
+    got = ts.host_state()
+    errs = {f: scaled_err(want, got, f) for f in KERNEL_FIELDS + ["F"]}
+    assert max(errs.values()) < tol, errs
+    assert beta_err(want, got, floor=1e-4) < 1.0
+    for key in ("RMS", "dt_used"):
+        assert rel_diff(gd[key], wd[key]) < tol, key
+    for key in ("unstable", "dt_overrun"):
+        np.testing.assert_array_equal(gd[key], wd[key], key)
