@@ -46,6 +46,9 @@ _SIGNATURES = {
     # field before the stream
     "hf2d_gfc_ext": [_I] + [_P] * 12 + [_I, _P, _P, _P, _P],
     "hf2d_pass12_ext": [_I] + [_P] * 9 + [_I, _P, _P, _P, _P],
+    # as, n, jp1_lo, jp1_hi, out, bad, stream (the check of pass12's
+    # division by j + 1)
+    "hf2d_div_jp1_check": [_P, _I, _I, _I, _P, _P, _P],
     # consts, cout, scr, ctx, dt, tiles, n_tiles, stream
     "hf2d_heat": [_P] * 6 + [_I, _P],
     # kernel (8 * stage + body), out (int32 x 6)

@@ -1267,29 +1267,78 @@ __device__ __forceinline__ float nb_flux_y(const C& c, const ExtIn& x,
     return (B[k.u ? n + 1 : n] - B[k.d ? n - 1 : n]) * rm_m;
 }
 
-// EXT: the extended form (ExtConsts): d2 averaging of the flux differences
-// where dx2/dy2 is set and the per-node NRBC beta_min (general and dual
-// bodies only: no spec tile holds such a node), F / (j + 1) of an
-// axisymmetric deck and Src dt of a deck with sources (every body), as
-// core/step.pass12 (JAX step.py:136-176).
-template <bool SPEC, bool EXT = false, class C, class Src, class Heat,
+// a / jp1, correctly rounded (bit for bit __fdiv_rn), for jp1 = j + 1 of
+// a node and rj = __frcp_rn(jp1), its one reciprocal: q = a rj, then one
+// Markstein correction q + (a - q jp1) rj, two FMAs and no branch to a slow
+// path.  It holds for every float a with 2^-90 <= |a| < 2^126 and every
+// integer jp1 <= DIV_JP1_MAX: the steps scale exactly with a's exponent in
+// that range and the remainder stays a normal float, so every significand
+// of a against every jp1 covers it, which chip_smoke.py checks on the card
+// against __fdiv_rn (hf2d_div_jp1_check, at each exponent F takes);
+// elsewhere (0, subnormal, huge, inf, NaN, or a wider grid) it is
+// __fdiv_rn itself.
+constexpr int DIV_JP1_MAX = 4096;
+
+__device__ __forceinline__ float div_jp1(float a, float jp1, float rj) {
+    const float m = fabsf(a);
+    if (m >= 0x1p-90f && m < 0x1p126f && jp1 <= F(DIV_JP1_MAX)) {
+        const float q = __fmul_rn(a, rj);
+        return __fmaf_rn(__fmaf_rn(-q, jp1, a), rj, q);
+    }
+    return __fdiv_rn(a, jp1);
+}
+
+// The feature forms of pass12's node code, fixed at compile time: the flat
+// forms (none), the axisymmetric-only form (F / (j + 1) and nothing else:
+// no d2, NRBC or source code, no collapse of the node's own), and the
+// all-features form, which tests each of c.axi, c.src, c.d2x, c.d2y and
+// c.nrbc at run time.
+constexpr int XF_FLAT = 0;
+constexpr int XF_AXI = 1;
+constexpr int XF_ALL = 2;
+
+// Radial flux F of equation e at the node.  gfc writes F under the guard
+// of A and B and as their own floats but for F[2] (fn2) and the turbulence
+// add-ons F[7], F[8] (gfc_node: fn = {bn[0], an[2], fn2, bn[3..6], f7,
+// f8}), so F[0] = B[0], F[1] = A[2], F[3..6] = B[3..6] bit for bit at every
+// node, and only the other three planes are read.
+template <class Src>
+__device__ __forceinline__ float radial_flux(const Src& src, int e) {
+    return e == 0 ? src.at(SCR_B, NB_C)
+         : e == 1 ? src.at(SCR_A + 2, NB_C)
+         : (e == 2 || e >= 7) ? src.at(SCR_F + e, NB_C)
+                              : src.at(SCR_B + e, NB_C);
+}
+
+// XF: the extended forms (ExtConsts) of XF_AXI or XF_ALL.  XF_ALL: d2
+// averaging of the flux differences where dx2/dy2 is set and the per-node
+// NRBC beta_min (general and dual bodies only: no spec tile holds such a
+// node), F / (j + 1) of an axisymmetric deck and Src dt of a deck with
+// sources (every body), as core/step.pass12 (JAX step.py:136-176); XF_AXI:
+// F / (j + 1) alone.
+template <bool SPEC, int XF = XF_FLAT, class C, class Src, class Heat,
           class Acc>
 __device__ __forceinline__ void pass12_node(
         const C& c, const Src& src, const uint32_t* w,
         const Stencil& st, float* __restrict__ cout, float dt,
         float beta_scen, bool own, bool store, const Heat& heat, Acc& acc,
         const ExtIn& ext = ExtIn{}) {
+    static_assert(XF == XF_FLAT || XF == XF_AXI || XF == XF_ALL,
+                  "a feature form of pass12");
     const size_t P = src.P;
     const size_t n = src.n;
     const float dtdx = dt / c.dx;
     const float dtdy = dt / c.dy;
     float bm = fminf(c.beta0, beta_scen);
-    Collapse kc{false, false, false, false};   // EXT: the node's collapse
-    if constexpr (EXT && !SPEC) {
+    Collapse kc{false, false, false, false};   // XF_ALL: the node's collapse
+    if constexpr (XF == XF_ALL && !SPEC) {
         if (c.nrbc && ctx_bit(w, CTX_NRBC)) bm = c.nrbc_beta0;
         kc = collapse<false>(c, w, ext.i, ext.j);
     }
-    const float jp1 = EXT ? static_cast<float>(ext.j) + F(1.0) : 0.f;
+    // j + 1 and its one reciprocal (div_jp1)
+    const float jp1 = XF != XF_FLAT ? static_cast<float>(ext.j) + F(1.0)
+                                    : 0.f;
+    const float rj = XF != XF_FLAT ? __frcp_rn(jp1) : 0.f;
     // the general body takes the energy equation first, so that the heat
     // source's live values end before any partial is held (the equations
     // are independent: the order moves no bit)
@@ -1316,7 +1365,9 @@ __device__ __forceinline__ void pass12_node(
         float sk = e == 7 ? src.at(SCR_SRC_K, NB_C)
                  : e == 8 ? src.at(SCR_SRC_EPS, NB_C) : 0.f;
         float dXX = dSdx, y_term = dSdy;
-        if constexpr (EXT) {
+        if constexpr (XF == XF_AXI)
+            y_term = y_term + div_jp1(radial_flux(src, e), jp1, rj);
+        if constexpr (XF == XF_ALL) {
             if constexpr (!SPEC) {
                 if (c.d2x && ctx_bit(w, CTX_DX2 + e)) {
                     const float l = kc.l ? nb_flux_x(c, ext, P, ext.i - 1,
@@ -1333,7 +1384,8 @@ __device__ __forceinline__ void pass12_node(
                     y_term = (u + d) * F(0.5);
                 }
             }
-            if (c.axi) y_term = y_term + src.at(SCR_F + e, NB_C) / jp1;
+            if (c.axi)
+                y_term = y_term + div_jp1(radial_flux(src, e), jp1, rj);
             if (c.src && e < 7) sk = ext.src[e * P + n];
         }
         float next = S_eff * beta + (F(1.0) - beta) * blend
@@ -1486,9 +1538,9 @@ __device__ __forceinline__ void gfc_direct(
 // general body takes the node's SrcAdd at the energy equation: folded
 // (c.heat_fold), it computes it from gfc's Tg and lam_eff (heat_source;
 // nothing pass12 writes is read there), else it reads the plane
-// heat_kernel wrote.  EXT: the extended form, which reads the source
-// field `srcp` (and for d2 the neighbours' scratch, ctx words and flags).
-template <bool SPEC, bool EXT = false, class C, class Acc>
+// heat_kernel wrote.  XF: the feature form (XF_ALL reads the source field
+// `srcp`, and for d2 the neighbours' scratch, ctx words and flags).
+template <bool SPEC, int XF = XF_FLAT, class C, class Acc>
 __device__ __forceinline__ void pass12_direct(
         const C& c, const float* __restrict__ cin,
         float* __restrict__ cout, const float* __restrict__ scr,
@@ -1509,10 +1561,10 @@ __device__ __forceinline__ void pass12_direct(
             h = scr[SCR_SRCADD_E * P + n];
         return h;
     };
-    pass12_node<SPEC, EXT>(c, direct_src<SPEC>(c, scr, cin, w, P, i, j), w,
-                           make_stencil<SPEC>(id4), cout, dt, beta_scen, own,
-                           store, heat, acc,
-                           ExtIn{srcp, scr, ctxw, idn, i, j});
+    pass12_node<SPEC, XF>(c, direct_src<SPEC>(c, scr, cin, w, P, i, j), w,
+                          make_stencil<SPEC>(id4), cout, dt, beta_scen, own,
+                          store, heat, acc,
+                          ExtIn{srcp, scr, ctxw, idn, i, j});
 }
 
 // The Tg<0 and dt-overrun counts of a tile over the window's rows (the
@@ -1573,15 +1625,18 @@ __device__ __forceinline__ void gfc_tile(
 }
 
 // A CTA of pass12 over its tile, the partials through the CTA's `red`
-// (pass12_kernel's body; EXT: pass12_ext_kernel's).  The dual body holds
-// both bodies in one function, and reduces each equation's partials over
-// the warp at once (WarpAcc: the same shuffles in the same order, so the
-// same bits), so that the 27 are never live together.  WarpAcc needs
+// (pass12_kernel's body; XF: the extended kernels' feature form).  The
+// dual body holds both bodies in one function, and reduces each
+// equation's partials over the warp at once (WarpAcc: the same shuffles
+// in the same order, so the same bits), so that the 27 are never live
+// together; so does every body of the extended forms (measured on an
+// H100: the general body's 72-byte spill gone and 15-17% faster, the spec
+// body at 64 registers and 4 CTAs an SM and 15% faster).  WarpAcc needs
 // every lane of the warp in each shuffle, so there a lane past the grid's
 // edge runs the body at the grid's last row and column, stores nothing
-// and counts nothing.  The spec and general bodies keep all 27 partials
-// of a node to the end of the tile (ArrayAcc).
-template <int BODY, bool EXT = false, class C>
+// and counts nothing.  The flat spec and general bodies keep all 27
+// partials of a node to the end of the tile (ArrayAcc).
+template <int BODY, int XF = XF_FLAT, class C>
 __device__ __forceinline__ void pass12_tile(
         const C& c, const float* __restrict__ cin, float* __restrict__ cout,
         const float* __restrict__ scr, const int8_t* __restrict__ idn,
@@ -1594,16 +1649,16 @@ __device__ __forceinline__ void pass12_tile(
     const int j = (tile % c.nby) * TILE_Y + threadIdx.x;
     const bool inside = i < c.X && j < c.Y;
     const bool own = inside && i >= c.x0 && i < c.x1;
-    if constexpr (BODY == BODY_DUAL) {
+    if constexpr (BODY == BODY_DUAL || XF != XF_FLAT) {
         WarpAcc acc{red};
         const int ic = min(i, c.X - 1), jc = min(j, c.Y - 1);
         if (spec_tile<BODY>(flags, tile))
-            pass12_direct<true, EXT>(c, cin, cout, scr, idn, ctxw, *dtp,
-                                     aux[0], ic, jc, own, inside, acc, srcp);
+            pass12_direct<true, XF>(c, cin, cout, scr, idn, ctxw, *dtp,
+                                    aux[0], ic, jc, own, inside, acc, srcp);
         else
-            pass12_direct<false, EXT>(c, cin, cout, scr, idn, ctxw, *dtp,
-                                      aux[0], ic, jc, own, inside, acc,
-                                      srcp);
+            pass12_direct<false, XF>(c, cin, cout, scr, idn, ctxw, *dtp,
+                                     aux[0], ic, jc, own, inside, acc,
+                                     srcp);
         __syncthreads();
         tile_partials(red, tile, part_f);
     } else {
@@ -1611,9 +1666,9 @@ __device__ __forceinline__ void pass12_tile(
 #pragma unroll
         for (int q = 0; q < NQ; ++q) acc.v[q] = 0.f;
         if (inside)
-            pass12_direct<BODY == BODY_SPEC, EXT>(c, cin, cout, scr, idn,
-                                                  ctxw, *dtp, aux[0], i, j,
-                                                  own, true, acc, srcp);
+            pass12_direct<BODY == BODY_SPEC, XF>(c, cin, cout, scr, idn,
+                                                 ctxw, *dtp, aux[0], i, j,
+                                                 own, true, acc, srcp);
         pass12_partials(acc, red, tile, part_f);
     }
 }

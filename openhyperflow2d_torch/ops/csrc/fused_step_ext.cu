@@ -6,8 +6,10 @@
 //   gfc_closure_ext_kernel<BODY>  gfc_euler_kernel, on an axisymmetric
 //   gfc_euler_ext_kernel<BODY>    deck (ExtConsts::axi) or one with
 //                                 external sources (::src)
-//   pass12_ext_kernel<BODY>       pass12 of pass12_kernel on such a deck,
-//                                 or on one with d2*-NULL soft BCs or NRBC
+//   pass12_axi_kernel<BODY>       pass12 of pass12_kernel on a deck whose
+//                                 one extended feature is axisymmetry
+//   pass12_ext_kernel<BODY>       pass12 of pass12_kernel on a deck with
+//                                 sources, d2*-NULL soft BCs or NRBC
 //
 // They replace the same TPU kernel as the flat forms
 // (openhyperflow2d_tpu/ops/pallas_step.py _machinery.make_fused, general
@@ -23,8 +25,10 @@
 //   every path), adds V / y_r to the dilatation and U / y_r to k-eps's
 //   production, and writes the radial fluxes F (the hoop stress in the V
 //   equation, the k, eps and SA add-ons) to 9 more scratch planes
-//   (SCR_F..); pass12 reads F at the node and adds dt / dy F / (j + 1),
-//   a division as in JAX;
+//   (SCR_F..); pass12 adds dt / dy F / (j + 1), correctly rounded as JAX's
+//   division, from one reciprocal of j + 1 a node (div_jp1).  It reads F
+//   at the node from the three planes that are not copies: F[0], F[3..6]
+//   are B[0], B[3..6] and F[1] is A[2], the same floats (radial_flux);
 // * external sources: pass12 reads the 9-plane source field at the node
 //   (Src dt of pass 1, every body), and gfc reads its planes 7 and 8, which
 //   stand as the turbulence sources where no closure writes them;
@@ -37,16 +41,20 @@
 //
 // No spec tile holds a d2 or NRBC node (generic_interior_map excludes any
 // node with an extra CT bit), so the spec bodies carry only F and Src.
+// pass12 comes in two feature forms fixed at compile time (XF_AXI, XF_ALL
+// in fused_step.cuh), which hf2d_pass12_ext picks from the flags: the
+// axisymmetric-only form carries no d2, NRBC or source code (the timed
+// axisymmetric decks), the all-features form tests each flag at run time.
 // The flat forms keep their symbols and code: a deck without these
 // features launches fused_step.cu's kernels (ops/fused_step.py gfc_ext,
 // pass12_ext).
 //
 // What bounds them on an H100: memory traffic, as the flat forms, plus
-// 36 bytes a node for gfc's F write and 36 for pass12's F read on an
+// 36 bytes a node for gfc's F write and 12 for pass12's F read (F[2],
+// F[7], F[8]; the other six are A and B it reads anyway) on an
 // axisymmetric deck, and 36 for pass12's Src read and 8 for gfc's on a
 // deck with sources; d2 and NRBC read a few more words at their (boundary)
-// nodes.  A simple kernel first: its speed is for a later change, and
-// PERF.md keeps its times.
+// nodes.  PERF.md keeps their times.
 #include "fused_step.cuh"
 
 template <int BODY>
@@ -55,8 +63,13 @@ gfc_ext_kernel(HF2D_GFC_PARAMS(ExtConsts), const float* __restrict__ srcp) {
     gfc_tile<BODY, false, false, true>(HF2D_GFC_FORWARD, srcp);
 }
 
+// 3 CTAs an SM, as gfc_closure_kernel: at 80 registers the general and
+// dual bodies spill 48 and 72 bytes, and ran 1.51x and 1.04x as fast on
+// an H100 as at 2 CTAs (99-100 registers, no spill); the spec body takes
+// 80 registers and spills 24 bytes with or without the bound, and at 2
+// CTAs (85 registers) ran 1.18x slower
 template <int BODY>
-__global__ void __launch_bounds__(CTA_THREADS)
+__global__ void __launch_bounds__(CTA_THREADS, 3)
 gfc_closure_ext_kernel(HF2D_GFC_PARAMS(ExtConsts),
                        const float* __restrict__ srcp) {
     gfc_tile<BODY, false, true, true>(HF2D_GFC_FORWARD, srcp);
@@ -71,22 +84,73 @@ gfc_euler_ext_kernel(HF2D_GFC_PARAMS(ExtConsts),
 #undef HF2D_GFC_PARAMS
 #undef HF2D_GFC_FORWARD
 
-// The budget of pass12_kernel: 3 CTAs an SM.
+// pass12's extended forms, each with the budget of pass12_kernel (3 CTAs
+// an SM): pass12_axi_kernel is the axisymmetric-only form (XF_AXI: F /
+// (j + 1) and no other feature's code), pass12_ext_kernel the
+// all-features form (XF_ALL, each feature tested at run time).
+#define HF2D_PASS12_EXT_PARAMS                                               \
+    const ExtConsts c, const float* __restrict__ cin,                       \
+        float* __restrict__ cout, const float* __restrict__ scr,            \
+        const int8_t* __restrict__ idn, const int32_t* __restrict__ ctxw,   \
+        const float* __restrict__ dtp, const float* __restrict__ aux,       \
+        const int32_t* __restrict__ tiles,                                  \
+        const int32_t* __restrict__ flags, float* __restrict__ part_f,      \
+        const float* __restrict__ srcp
 template <int BODY>
 __global__ void __launch_bounds__(CTA_THREADS, 3)
-pass12_ext_kernel(const ExtConsts c, const float* __restrict__ cin,
-                  float* __restrict__ cout, const float* __restrict__ scr,
-                  const int8_t* __restrict__ idn,
-                  const int32_t* __restrict__ ctxw,
-                  const float* __restrict__ dtp,
-                  const float* __restrict__ aux,
-                  const int32_t* __restrict__ tiles,
-                  const int32_t* __restrict__ flags,
-                  float* __restrict__ part_f,
-                  const float* __restrict__ srcp) {
+pass12_axi_kernel(HF2D_PASS12_EXT_PARAMS) {
     __shared__ float red[TILE_X][NQ];
-    pass12_tile<BODY, true>(c, cin, cout, scr, idn, ctxw, dtp, aux, tiles,
-                            flags, part_f, red, srcp);
+    pass12_tile<BODY, XF_AXI>(c, cin, cout, scr, idn, ctxw, dtp, aux, tiles,
+                              flags, part_f, red, srcp);
+}
+
+template <int BODY>
+__global__ void __launch_bounds__(CTA_THREADS, 3)
+pass12_ext_kernel(HF2D_PASS12_EXT_PARAMS) {
+    __shared__ float red[TILE_X][NQ];
+    pass12_tile<BODY, XF_ALL>(c, cin, cout, scr, idn, ctxw, dtp, aux, tiles,
+                              flags, part_f, red, srcp);
+}
+#undef HF2D_PASS12_EXT_PARAMS
+
+// The feature form of pass12 a deck's flags call for (ops/fused_step.py
+// pass12_form mirrors it): the axisymmetric-only form where axisymmetry is
+// the one feature, the all-features form where the deck has sources, d2
+// or NRBC; -1 (no form: such a deck runs pass12_kernel) without any.
+static int pass12_form(const ExtConsts& c) {
+    if (c.src || c.d2x || c.d2y || c.nrbc) return XF_ALL;
+    return c.axi ? XF_AXI : -1;
+}
+
+// The division check of div_jp1 (chip_smoke.py): for each a of as[0, n)
+// and each jp1 in [jp1_lo, jp1_hi], div_jp1 against __fdiv_rn bit for bit;
+// the count of differences is added to bad[0] and the last difference
+// found is left in bad[1] (a's bits << 32 | jp1).  With `out`, the
+// quotient of a[i] by jp1 is also written to out[(jp1 - jp1_lo) n + i].
+__global__ void __launch_bounds__(CTA_THREADS)
+div_jp1_check_kernel(const float* __restrict__ as, int n, int jp1_lo,
+                     int jp1_hi, float* __restrict__ out,
+                     unsigned long long* __restrict__ bad) {
+    const int i = blockIdx.x * CTA_THREADS + threadIdx.x;
+    unsigned long long count = 0, last = 0;
+    if (i < n) {
+        const float a = as[i];
+        for (int b = jp1_lo; b <= jp1_hi; ++b) {
+            const float jp1 = static_cast<float>(b);
+            const float q = div_jp1(a, jp1, __frcp_rn(jp1));
+            if (__float_as_uint(q) != __float_as_uint(__fdiv_rn(a, jp1))) {
+                ++count;
+                last = (static_cast<unsigned long long>(__float_as_uint(a))
+                        << 32) | static_cast<unsigned>(b);
+            }
+            if (out != nullptr)
+                out[static_cast<size_t>(b - jp1_lo) * n + i] = q;
+        }
+    }
+    if (count) {
+        atomicAdd(bad, count);
+        atomicExch(bad + 1, last);
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -167,13 +231,23 @@ int hf2d_pass12_ext(int body, const void* consts, const void* cin,
         static_cast<const float*>(aux), static_cast<const int32_t*>(tiles), \
         static_cast<const int32_t*>(flags), static_cast<float*>(part_f),    \
         static_cast<const float*>(src)
-    if (body == BODY_GENERAL)
+    const int form = pass12_form(c);
+    if (form == XF_AXI && body == BODY_GENERAL)
+        pass12_axi_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
+            HF2D_PASS12_EXT_ARGS);
+    else if (form == XF_AXI && body == BODY_SPEC)
+        pass12_axi_kernel<BODY_SPEC><<<n_tiles, block, 0, s>>>(
+            HF2D_PASS12_EXT_ARGS);
+    else if (form == XF_AXI && body == BODY_DUAL)
+        pass12_axi_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(
+            HF2D_PASS12_EXT_ARGS);
+    else if (form == XF_ALL && body == BODY_GENERAL)
         pass12_ext_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
             HF2D_PASS12_EXT_ARGS);
-    else if (body == BODY_SPEC)
+    else if (form == XF_ALL && body == BODY_SPEC)
         pass12_ext_kernel<BODY_SPEC><<<n_tiles, block, 0, s>>>(
             HF2D_PASS12_EXT_ARGS);
-    else if (body == BODY_DUAL)
+    else if (form == XF_ALL && body == BODY_DUAL)
         pass12_ext_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(
             HF2D_PASS12_EXT_ARGS);
     else
@@ -182,10 +256,23 @@ int hf2d_pass12_ext(int body, const void* consts, const void* cin,
     return static_cast<int>(cudaGetLastError());
 }
 
-// The kernel of stage 5 (gfc_ext), 6 (gfc_closure_ext), 7 (gfc_euler_ext)
-// or 8 (pass12_ext) and body (BODY_GENERAL, BODY_SPEC or BODY_DUAL; the
-// Euler form has no spec body), for fused_step.cu's hf2d_kernel_info;
-// null for any other.
+// div_jp1_check_kernel over as[0, n) and jp1 in [jp1_lo, jp1_hi] (out:
+// null, or (jp1_hi - jp1_lo + 1) x n floats; bad: two zeroed uint64).
+int hf2d_div_jp1_check(const void* as, int n, int jp1_lo, int jp1_hi,
+                       void* out, void* bad, void* stream) {
+    if (n <= 0 || jp1_lo < 1 || jp1_hi < jp1_lo)
+        return static_cast<int>(cudaErrorInvalidValue);
+    div_jp1_check_kernel<<<(n + CTA_THREADS - 1) / CTA_THREADS, CTA_THREADS,
+                           0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(as), n, jp1_lo, jp1_hi,
+        static_cast<float*>(out), static_cast<unsigned long long*>(bad));
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel of stage 5 (gfc_ext), 6 (gfc_closure_ext), 7 (gfc_euler_ext),
+// 8 (pass12_ext, the all-features form) or 9 (pass12_axi) and body
+// (BODY_GENERAL, BODY_SPEC or BODY_DUAL; the Euler form has no spec body),
+// for fused_step.cu's hf2d_kernel_info; null for any other.
 const void* hf2d_ext_kernel_fn(int stage, int body) {
     if (body != BODY_GENERAL && body != BODY_SPEC && body != BODY_DUAL)
         return nullptr;
@@ -207,6 +294,10 @@ const void* hf2d_ext_kernel_fn(int stage, int body) {
             return spec ? (const void*)pass12_ext_kernel<BODY_SPEC>
                  : dual ? (const void*)pass12_ext_kernel<BODY_DUAL>
                         : (const void*)pass12_ext_kernel<BODY_GENERAL>;
+        case 9:
+            return spec ? (const void*)pass12_axi_kernel<BODY_SPEC>
+                 : dual ? (const void*)pass12_axi_kernel<BODY_DUAL>
+                        : (const void*)pass12_axi_kernel<BODY_GENERAL>;
         default:
             return nullptr;
     }

@@ -129,14 +129,16 @@ CLOSURE_KERNEL_NAMES = ("gfc_closure_kernel<spec>",
 # the extended forms (axisymmetric flow, external sources; pass12's also
 # d2*-NULL soft BCs and NRBC): kernels of their own, so the flat,
 # sourceless decks keep their symbols and code (``gfc_ext``,
-# ``pass12_ext``)
+# ``pass12_ext``); pass12 in two feature forms (``pass12_form``)
+PASS12_FORMS = {"axi": "pass12_axi_kernel", "all": "pass12_ext_kernel"}
 EXT_KERNEL_NAMES = ("gfc_ext_kernel<spec>", "gfc_ext_kernel<general>",
                     "gfc_ext_kernel<dual>", "gfc_closure_ext_kernel<spec>",
                     "gfc_closure_ext_kernel<general>",
                     "gfc_closure_ext_kernel<dual>",
                     "gfc_euler_ext_kernel<general>",
-                    "gfc_euler_ext_kernel<dual>", "pass12_ext_kernel<spec>",
-                    "pass12_ext_kernel<general>", "pass12_ext_kernel<dual>")
+                    "gfc_euler_ext_kernel<dual>") + tuple(
+    f"{kernel}<{body}>" for kernel in PASS12_FORMS.values()
+    for body in ("spec", "general", "dual"))
 PATH_KERNEL_NAMES = (NS_KERNEL_NAMES + EULER_KERNEL_NAMES
                      + CLOSURE_KERNEL_NAMES + EXT_KERNEL_NAMES)
 KERNEL_NAMES = PATH_KERNEL_NAMES + ("heat_kernel", "gfc_kernel<staged>",
@@ -195,11 +197,30 @@ def gfc_ext(params) -> bool:
 
 
 def pass12_ext(params) -> bool:
-    """Whether pass12 runs its extended form (``pass12_ext_kernel``):
+    """Whether pass12 runs an extended form (``pass12_form``):
     gfc's (F / (j + 1), Src dt), or d2*-NULL soft BCs or NRBC (the general
     and dual bodies: no spec tile holds such a node)."""
     p = params
     return gfc_ext(p) or p.has_d2x or p.has_d2y or p.has_nrbc
+
+
+def pass12_form(params) -> str:
+    """The feature form of pass12's extended kernel a deck runs (a key of
+    PASS12_FORMS), as the C entry hf2d_pass12_ext picks it from the same
+    flags: "axi" (``pass12_axi_kernel``, F / (j + 1) and no other
+    feature's code) where axisymmetry is the deck's one extended feature,
+    "all" (``pass12_ext_kernel``, each feature tested at run time) where it
+    has sources, d2*-NULL soft BCs or NRBC.  Raises for a deck with none
+    (it runs the flat ``pass12_kernel``)."""
+    p = params
+    f = {"axi": p.ft == fl.FT_AXISYMMETRIC, "src": bool(p.has_ext_src),
+         "d2x": bool(p.has_d2x), "d2y": bool(p.has_d2y),
+         "nrbc": bool(p.has_nrbc)}
+    if f["src"] or f["d2x"] or f["d2y"] or f["nrbc"]:
+        return "all"
+    if f["axi"]:
+        return "axi"
+    raise ValueError(f"pass12 has no extended form for the features {f}")
 
 
 def n_scratch(params) -> int:
@@ -548,6 +569,45 @@ def _ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
+# pass12's division F / (j + 1) (csrc/fused_step.cuh div_jp1): one
+# reciprocal of j + 1 a node and a Markstein correction a quotient, bit for
+# bit IEEE division for j + 1 <= DIV_JP1_MAX; its check kernel's launches
+DIV_JP1_MAX = 4096
+DIV_CHECK_LAUNCHES = {"div_jp1_check_kernel": 0}
+
+
+def div_jp1_check(a: torch.Tensor, jp1_lo: int, jp1_hi: int,
+                  out: bool = False):
+    """div_jp1 against IEEE division (__fdiv_rn) for every float of ``a``
+    (1-D float32) and every j + 1 in [jp1_lo, jp1_hi]: (the number of
+    quotients whose bits differ, the last such (a, j + 1) or None, the
+    (jp1_hi - jp1_lo + 1, n) quotients with ``out``, else None).  On a CPU
+    tensor its plain version, IEEE division, which differs nowhere."""
+    jp1 = torch.arange(jp1_lo, jp1_hi + 1, dtype=torch.float32,
+                       device=a.device)
+    if a.device.type == "cpu":
+        return 0, None, (a[None] / jp1[:, None] if out else None)
+    if a.dtype != torch.float32 or a.dim() != 1 or not a.is_contiguous():
+        raise ValueError("div_jp1_check takes a contiguous 1-D float32 "
+                         "tensor")
+    from .build import load_kernels
+    lib = load_kernels()
+    q = (torch.empty((jp1.numel(), a.numel()), dtype=torch.float32,
+                     device=a.device) if out else None)
+    bad = torch.zeros(2, dtype=torch.int64, device=a.device)
+    lib.check(lib.lib.hf2d_div_jp1_check(
+        _ptr(a), a.numel(), jp1_lo, jp1_hi, _ptr(q) if out else None,
+        _ptr(bad), torch.cuda.current_stream().cuda_stream),
+        "div_jp1_check_kernel")
+    DIV_CHECK_LAUNCHES["div_jp1_check_kernel"] += 1
+    n_bad, last = (int(x) & (2**64 - 1) for x in bad.cpu())
+    where = None
+    if n_bad:
+        bits_a = np.array([last >> 32], dtype=np.uint32)
+        where = (float(bits_a.view(np.float32)[0]), last & 0xffffffff)
+    return n_bad, where, q
+
+
 class FusedStep:
     """One kernel-path iteration: ``gfc``, ``heat`` and ``pass12`` over the
     grid with a frozen dt.  Holds the static kernel inputs of a case, the
@@ -583,6 +643,7 @@ class FusedStep:
         self.closure = is_closure(p)
         self.has_y_plus = needs_y_plus(p)
         self.gfc_ext, self.pass12_ext = gfc_ext(p), pass12_ext(p)
+        self.pass12_form = pass12_form(p) if self.pass12_ext else None
         self.axi = p.ft == fl.FT_AXISYMMETRIC
         self.idn = torch.stack([meta.idXl, meta.idXr, meta.idYu, meta.idYd])
         # the lam_t plane on Euler decks; y+ after a (zero) lam_t plane
@@ -635,7 +696,9 @@ class FusedStep:
 
     def pass12_name(self, body: str) -> str:
         """The name of pass12's kernel instantiation for ``body``."""
-        return f"pass12{'_ext' if self.pass12_ext else ''}_kernel<{body}>"
+        kernel = (PASS12_FORMS[self.pass12_form] if self.pass12_ext
+                  else "pass12_kernel")
+        return f"{kernel}<{body}>"
 
     def iteration_launches(self) -> list:
         """The kernels one iteration launches, in order (no launch needs
@@ -721,8 +784,8 @@ class FusedStep:
         always reads it)."""
         if self.pass12_ext and body == "staged":
             raise NotImplementedError(
-                "pass12_ext_kernel has no staged body (the staged form is an "
-                "A/B candidate of the standard k-eps decks)")
+                f"{self.pass12_name(body)} has no staged body (the staged "
+                f"form is an A/B candidate of the standard k-eps decks)")
         self._check_cuda(cin, cout, scr, dt, aux, part_f, self.src)
         tiles, n_tiles = self.plan.launch_grid(body, part)
         consts = self.consts if fold else self.consts_unfolded

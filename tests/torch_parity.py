@@ -394,12 +394,13 @@ def check_axisym_kernel(name, K, tol=1e-10):
     every field to ``tol`` of its plane's scale, RMS and dt_used to rtol
     ``tol``, beta by beta_err where the equation is above 1e-4 of its
     scale, the unstable and dt_overrun rows exactly."""
+    from openhyperflow2d_torch.ops.fused_step import EXT_KERNEL_NAMES
     from openhyperflow2d_torch.solver.runner import Solver
     want, wd = pallas_axisym_cycle(name, K)
     jc = jax_axisym_case(name)
     ts = Solver(port_case(jc), device="cpu", use_kernels=True, fuse_iters=K)
     ts.case.Nstep = _axisym_decks()[name][1]
-    assert all("_ext_kernel" in n for n in ts.fused.iteration_launches())
+    assert all(n in EXT_KERNEL_NAMES for n in ts.fused.iteration_launches())
     gd, _ = ts.run_cycle()
     got = ts.host_state()
     errs = {f: scaled_err(want, got, f) for f in KERNEL_FIELDS + ["F"]}
