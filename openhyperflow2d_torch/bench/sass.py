@@ -1,17 +1,23 @@
-"""SASS opcode counts of the microbenchmark kernels (ops/csrc/microbench.cu)
-as built for the card: ``cuobjdump -sass`` of the kernel library, each
-``shift_chain``/``div_chain`` instantiation's whole function and, for
-``div_chain``, each innermost loop (a backward branch holding no other)
-over its DIV_UNROLL x DIV_EPT op steps, which gives the counts a step.
+"""SASS opcode counts of the kernels as built for the card: ``cuobjdump
+-sass`` of the kernel library.  The microbenchmark kernels
+(ops/csrc/microbench.cu): each ``shift_chain``/``div_chain``
+instantiation's whole function and, for ``div_chain``, each innermost loop
+(a backward branch holding no other) over its DIV_UNROLL x DIV_EPT op
+steps, which gives the counts a step.  The solver's gfc and pass12 kernels
+(ops/csrc/fused_step*.cu): each instantiation's whole function (its
+global and shared loads, the MUFU and FCHK of its divisions, the CALLs to
+the division's slow path, its local loads and stores).
 
-    python -m openhyperflow2d_torch.bench.sass
+    python -m openhyperflow2d_torch.bench.sass [--tree TREE] [NAME ...]
 
-builds the library if needed (nvcc) and prints one line a kernel.  It exits
-non-zero where cuobjdump is not beside nvcc.
+builds the library if needed (nvcc; of TREE's ops/csrc with ``--tree``)
+and prints one line a kernel, those whose name contains one of the NAMEs
+if any are given.  It exits non-zero where cuobjdump is not beside nvcc.
 """
 
 from __future__ import annotations
 
+import argparse
 import re
 import subprocess
 import sys
@@ -22,10 +28,14 @@ from . import microbench as mb
 # mangled names in cuobjdump's listing: shift_chain<AXIS, WRAP>,
 # div_chain<OP, VEC>
 _KERNEL = re.compile(r"(shift|div)_chainILi(\d)ELb([01])E")
+# the solver's kernels: <kind>_kernel<BODY>
+_FUSED = re.compile(r"_Z\d+((?:gfc|pass12)\w*?_kernel)ILi(\d)E")
+_BODY = {"0": "general", "1": "spec", "2": "dual", "3": "staged"}
 _INST = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _BACK = re.compile(r"\bBRA\S*\s+(?:\S+\s+)?`?\(?(0x[0-9a-f]+)")
 OPS = ("MUFU", "FFMA", "FMUL", "FADD", "FCHK", "FSETP", "ISETP", "PLOP3",
-       "CALL", "BRA", "LDG", "STG", "LDS", "STS", "BAR", "SHFL")
+       "CALL", "BRA", "LDG", "STG", "LDS", "STS", "LDL", "STL", "BAR",
+       "SHFL")
 
 
 def counts(insts) -> dict:
@@ -41,12 +51,15 @@ def counts(insts) -> dict:
 
 def functions(listing: str) -> dict:
     """{(kind, template argument, flag): [(address, instruction)]} of the
-    microbenchmark kernels in a cuobjdump -sass listing."""
+    microbenchmark kernels in a cuobjdump -sass listing, and of the
+    solver's kernels under ("fused", name, body)."""
     funcs, cur = {}, None
     for line in listing.splitlines():
         if "Function :" in line:
             m = _KERNEL.search(line)
-            cur = m.groups() if m else None
+            f = _FUSED.search(line)
+            cur = (m.groups() if m else
+                   ("fused", f.group(1), _BODY[f.group(2)]) if f else None)
             if cur:
                 funcs[cur] = []
             continue
@@ -75,6 +88,12 @@ def report(listing: str) -> list:
     then for div, exact rcp and sqrt the rerun on nvcc's ops)."""
     lines = []
     for (kind, arg, flag), insts in sorted(functions(listing).items()):
+        if kind == "fused":
+            whole = counts(t for _, t in insts)
+            lines.append(f"{arg}<{flag}>: {len(insts)} instructions, "
+                         + ", ".join(f"{k} {v}" for k, v in whole.items()
+                                     if v))
+            continue
         if kind == "div" and flag == "0":
             continue    # the element-load form; the scripts' blocks align
         name = (mb.shift_name(int(arg), flag == "1") if kind == "shift"
@@ -95,17 +114,26 @@ def report(listing: str) -> list:
 
 
 def main() -> int:
-    from ..ops.build import load_kernels, nvcc_path
+    from ..ops.build import CSRC, load_library, nvcc_path
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", help="report TREE's ops/csrc build instead")
+    ap.add_argument("names", nargs="*",
+                    help="only the kernels whose name holds one of these")
+    args = ap.parse_args()
     cuobjdump = Path(nvcc_path()).parent / "cuobjdump"
     if not cuobjdump.exists():
         print(f"sass: {cuobjdump} not found", file=sys.stderr)
         return 2
+    csrc = Path(args.tree) / "openhyperflow2d_torch/ops/csrc" \
+        if args.tree else CSRC
     listing = subprocess.run([str(cuobjdump), "-sass",
-                              str(load_kernels().path)],
+                              str(load_library(csrc).path)],
                              capture_output=True, text=True,
                              check=True).stdout
     for line in report(listing):
-        print(line)
+        if not args.names or any(n in line.split(":")[0]
+                                 for n in args.names):
+            print(line)
     return 0
 
 

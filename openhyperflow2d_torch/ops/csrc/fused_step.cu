@@ -569,13 +569,14 @@ const void* hf2d_ext_kernel_fn(int stage, int body);   // fused_step_ext.cu
 // gfc_euler (BODY_GENERAL or BODY_DUAL), 4 gfc_closure (BODY_GENERAL,
 // BODY_SPEC or BODY_DUAL); the extended forms 5 gfc_ext, 6
 // gfc_closure_ext, 7 gfc_euler_ext, 8 pass12_ext (the all-features form),
-// 9 pass12_axi (the axisymmetric-only form) (hf2d_ext_kernel_fn).
+// 9 pass12_axi (the axisymmetric-only form), 10 gfc_axi (gfc's
+// axisymmetric-only form) (hf2d_ext_kernel_fn).
 int hf2d_kernel_info(int kernel, int* out) {
     const void* fn = nullptr;
     const int stage = kernel / 8, body = kernel % 8;
     size_t dyn = 0;
     int ctas = 0, per_sm = 0, err = 0;
-    if (stage > 9 || (stage < 2 && body > BODY_STAGED)
+    if (stage > 10 || (stage < 2 && body > BODY_STAGED)
         || (stage == 3 && body != BODY_GENERAL && body != BODY_DUAL)
         || (stage == 4 && body > BODY_DUAL))
         return static_cast<int>(cudaErrorInvalidValue);

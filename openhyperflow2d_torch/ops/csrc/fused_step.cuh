@@ -79,25 +79,41 @@ static_assert(sizeof(ExtConsts) == sizeof(ClosureConsts) + 6 * 4,
 
 // What the extended forms read besides their stage's planes: the external
 // source field (9 planes of the grid), and for d2 the scratch, ctx words
-// and neighbour flags of the node's neighbours; the node (i, j).  The flat
-// forms pass an empty one and read none of it.
+// and neighbour flags of the node's neighbours; the node (i, j); gfc's
+// chemistry-table coefficients, staged in shared memory (chem_coef).  The
+// flat forms pass an empty one and read none of it.
 struct ExtIn {
     const float* __restrict__ src;
     const float* __restrict__ scr;
     const int32_t* __restrict__ ctxw;
     const int8_t* __restrict__ idn;
     int i, j;
+    const float* coef = nullptr;
 };
 
-// c.axi / c.src of an extended form's constants; false in the flat forms
-// (whose constants have no such fields).
-template <bool EXT, class C>
+// The feature forms of the node code, fixed at compile time: the flat
+// forms (none), the axisymmetric-only form (axisymmetry and nothing else:
+// no source, d2 or NRBC code; pass12 also takes no collapse of the node's
+// own), and the all-features form, which tests each of c.axi, c.src,
+// c.d2x, c.d2y and c.nrbc at run time.
+constexpr int XF_FLAT = 0;
+constexpr int XF_AXI = 1;
+constexpr int XF_ALL = 2;
+
+// c.axi / c.src of a feature form: read in the extended forms, false in
+// the flat forms (whose constants have no such fields); c.src is false in
+// the axisymmetric-only form.  gfc's axisymmetric-only form still reads
+// c.axi (one uniform predicate): with the axisymmetric terms compiled in
+// unconditionally, nvcc contracted the dilatation's and the hoop stress's
+// terms otherwise (A[1], A[3], B[2] and F[2] moved by up to 2e-6 at a few
+// thousand nodes of the combustor) and ran no faster on an H100.
+template <int XF, class C>
 __device__ __forceinline__ bool ext_axi(const C& c) {
-    if constexpr (EXT) return c.axi != 0; else return false;
+    if constexpr (XF != XF_FLAT) return c.axi != 0; else return false;
 }
-template <bool EXT, class C>
+template <int XF, class C>
 __device__ __forceinline__ bool ext_src(const C& c) {
-    if constexpr (EXT) return c.src != 0; else return false;
+    if constexpr (XF == XF_ALL) return c.src != 0; else return false;
 }
 
 // kernel bodies (ops/fused_step.py _BODY_CODE): GENERAL is the general
@@ -529,6 +545,58 @@ __device__ __forceinline__ float mixture(const float* __restrict__ chemf,
            + table_lookup(chemf, chemi, 4 * prop + 3, Tg) * Yair;
 }
 
+// The extended forms' table lookups: each table's slopes computed once on
+// the host (ops/fused_step.pack_chem), not at every node.  After what
+// table_lookup reads, chemf holds a coefficient block of chemi[CHEM_COEF]
+// floats at chemi[CHEM_COEF + 1] (chemi[CHEM_COEF] <= CHEM_COEF_MAX): a
+// head of 4 floats a table (x0, y0, m1, code), m1 = (y1 - y0) / (x1 - x0)
+// rounded as the division above rounds it; code 0: two ascending knots;
+// > 0: more, at block offset code a pair (segments k, 0) and k pairs
+// (x_{s-1}, m_s - m_{s-1}); -1: one knot or not ascending (table_lookup).
+// An extended CTA stages the block in shared memory (stage_chem_coef), so
+// a lookup is loads from shared memory and, for two knots, one FMA: the
+// same expressions and bits as table_lookup, with no chemi indirection and
+// no division.
+constexpr int N_CHEM_TABLES = 12;
+constexpr int CHEM_COEF = 3 * N_CHEM_TABLES;
+constexpr int CHEM_COEF_MAX = 1024;
+
+__device__ __forceinline__ void stage_chem_coef(
+        float* coef, const float* __restrict__ chemf,
+        const int32_t* __restrict__ chemi) {
+    const int len = chemi[CHEM_COEF], off = chemi[CHEM_COEF + 1];
+    for (int k = threadIdx.y * TILE_Y + threadIdx.x; k < len;
+         k += CTA_THREADS)
+        coef[k] = chemf[off + k];
+    __syncthreads();
+}
+
+__device__ __forceinline__ float coef_lookup(const float* coef,
+                                    const float* __restrict__ chemf,
+                                    const int32_t* __restrict__ chemi, int t,
+                                    float q) {
+    const float4 h = reinterpret_cast<const float4*>(coef)[t];
+    float out = h.y + h.z * (q - h.x);
+    if (h.w == 0.f) return out;
+    if (h.w < 0.f) return table_lookup(chemf, chemi, t, q);
+    const float2* seg =
+        reinterpret_cast<const float2*>(coef + static_cast<int>(h.w));
+    const int k = static_cast<int>(seg[0].x);
+    for (int s = 1; s <= k; ++s)
+        out = out + seg[s].y * fmaxf(q - seg[s].x, 0.f);
+    return out;
+}
+
+__device__ __forceinline__ float mixture_coef(
+        const float* coef, const float* __restrict__ chemf,
+        const int32_t* __restrict__ chemi, int prop, float Tg, float Yfu,
+        float Yox, float Ycp, float Yair) {
+    return coef_lookup(coef, chemf, chemi, 4 * prop + 0, Tg) * Yfu
+           + coef_lookup(coef, chemf, chemi, 4 * prop + 1, Tg) * Yox
+           + coef_lookup(coef, chemf, chemi, 4 * prop + 2, Tg) * Ycp
+           + coef_lookup(coef, chemf, chemi, 4 * prop + 3, Tg) * Yair;
+}
+
 // ---------------------------------------------------------------------------
 // The turbulence closures of gfc_closure_kernel: core/physics._turb_mod_rans
 // for one node (TurbModRANS2D, hyper_flow_node.hpp:601-957; the JAX
@@ -762,7 +830,7 @@ __device__ __forceinline__ void closures(const ClosureConsts& c,
 // `src` reads the carry `cin` (through the node's collapse) and the meta
 // planes mf (aux), `w` holds the node's ctx words, `st` its neighbour
 // flags.
-template <bool SPEC, bool EULER, bool CLOSURE, bool EXT = false, class C,
+template <bool SPEC, bool EULER, bool CLOSURE, int XF = XF_FLAT, class C,
           class Src>
 __device__ __forceinline__ void gfc_node(
         const C& c, const Src& src, const uint32_t* w,
@@ -884,15 +952,14 @@ __device__ __forceinline__ void gfc_node(
     // EXT: the node radius (j + 0.5) dy of an axisymmetric deck
     // (static_ctx.py:369-370), and the source field's turbulence sources,
     // which stand where no closure writes them (fill_node's src list)
-    const bool axi = ext_axi<EXT>(c);
+    constexpr bool EXT = XF != XF_FLAT;
+    const bool axi = ext_axi<XF>(c);
     const float y_r = EXT ? (static_cast<float>(ext.j) + F(0.5)) * c.dy
                           : 0.f;
     float srcd7 = 0.f, srcd8 = 0.f;
-    if constexpr (EXT) {
-        if (c.src) {
-            srcd7 = ext.src[7 * P + n];
-            srcd8 = ext.src[8 * P + n];
-        }
+    if (ext_src<XF>(c)) {
+        srcd7 = ext.src[7 * P + n];
+        srcd8 = ext.src[8 * P + n];
     }
     float a7 = 0.f, a8 = 0.f, b7 = 0.f, b8 = 0.f, src7 = srcd7, src8 = srcd8;
     float f7 = 0.f, f8 = 0.f;   // EXT: the turbulence add-ons of F
@@ -1075,12 +1142,14 @@ __device__ __forceinline__ void gfc_node(
         if (axi) {
             // F = (rhoV, rhoV U, rhoV V, (rhoE + p) V, rhoY V) less the
             // viscous terms: bn but for the momentum equations, where it
-            // is an[2] (the U one) and fn2; then the turbulence add-ons
-            const float fn[9] = {bn[0], an[2], fn2, bn[3], bn[4], bn[5],
-                                 bn[6], f7, f8};
-#pragma unroll
-            for (int e = 0; e < 9; ++e)
-                scr[(SCR_F + e) * P + n] = guard ? fn[e] : 0.f;
+            // is an[2] (the U one) and fn2; then the turbulence add-ons.
+            // F[0], F[1] and F[3..6] are the floats of B[0], A[2] and
+            // B[3..6] under the same guard, which pass12 reads as such
+            // (radial_flux): only the other three are written, and their
+            // six planes are never written or read
+            scr[(SCR_F + 2) * P + n] = guard ? fn2 : 0.f;
+            scr[(SCR_F + 7) * P + n] = guard ? f7 : 0.f;
+            scr[(SCR_F + 8) * P + n] = guard ? f8 : 0.f;
         }
     }
     const float U_f = guard ? U : U0;
@@ -1121,13 +1190,25 @@ __device__ __forceinline__ void gfc_node(
     // mixture properties at Tg (pre-clip mass fractions)
     const float R_new = chemf[0] * Yfu + chemf[1] * Yox + chemf[2] * Ycp
                         + chemf[3] * Yair;
-    const float CP_new = mixture(chemf, chemi, 0, Tg_f, Yfu, Yox, Ycp, Yair);
+    // (the extended forms but the Euler one from the staged coefficients:
+    // mixture_coef, gfc_tile)
+    float CP_new, lam_new, mu_new;
+    if constexpr (EXT && !EULER) {
+        CP_new = mixture_coef(ext.coef, chemf, chemi, 0, Tg_f, Yfu, Yox, Ycp,
+                              Yair);
+        lam_new = mixture_coef(ext.coef, chemf, chemi, 1, Tg_f, Yfu, Yox, Ycp,
+                               Yair);
+        mu_new = mixture_coef(ext.coef, chemf, chemi, 2, Tg_f, Yfu, Yox, Ycp,
+                              Yair);
+    } else {
+    CP_new = mixture(chemf, chemi, 0, Tg_f, Yfu, Yox, Ycp, Yair);
     // outside SM_NS lam and mu are carried (physics.py calc_chemical_
     // reactions)
-    const float lam_new = EULER ? lam
+    lam_new = EULER ? lam
         : mixture(chemf, chemi, 1, Tg_f, Yfu, Yox, Ycp, Yair);
-    const float mu_new = EULER ? mu
+    mu_new = EULER ? mu
         : mixture(chemf, chemi, 2, Tg_f, Yfu, Yox, Ycp, Yair);
+    }
     Yair = Yair < F(1.e-5) ? 0.f : Yair;
     Ycp = Ycp < F(1.e-8) ? 0.f : Ycp;
     Yox = Yox < F(1.e-8) ? 0.f : Yox;
@@ -1287,15 +1368,6 @@ __device__ __forceinline__ float div_jp1(float a, float jp1, float rj) {
     }
     return __fdiv_rn(a, jp1);
 }
-
-// The feature forms of pass12's node code, fixed at compile time: the flat
-// forms (none), the axisymmetric-only form (F / (j + 1) and nothing else:
-// no d2, NRBC or source code, no collapse of the node's own), and the
-// all-features form, which tests each of c.axi, c.src, c.d2x, c.d2y and
-// c.nrbc at run time.
-constexpr int XF_FLAT = 0;
-constexpr int XF_AXI = 1;
-constexpr int XF_ALL = 2;
 
 // Radial flux F of equation e at the node.  gfc writes F under the guard
 // of A and B and as their own floats but for F[2] (fn2) and the turbulence
@@ -1511,9 +1583,10 @@ __device__ __forceinline__ bool spec_tile(const int32_t* __restrict__ flags,
     return BODY == BODY_DUAL ? flags[tile] != 0 : BODY == BODY_SPEC;
 }
 
-// One node of gfc on direct global loads; EXT: the extended form, which
-// reads the source field `srcp`.
-template <bool SPEC, bool EULER, bool CLOSURE, bool EXT = false, class C>
+// One node of gfc on direct global loads; XF: the feature form (the
+// extended forms read the staged table coefficients `coef`, and the
+// all-features form the source field `srcp`).
+template <bool SPEC, bool EULER, bool CLOSURE, int XF = XF_FLAT, class C>
 __device__ __forceinline__ void gfc_direct(
         const C& c, const float* __restrict__ cin,
         float* __restrict__ cout, float* __restrict__ scr,
@@ -1521,17 +1594,19 @@ __device__ __forceinline__ void gfc_direct(
         const int32_t* __restrict__ ctxw, const float* __restrict__ chemf,
         const int32_t* __restrict__ chemi, float dt, float cfl_scen,
         bool mu_t_iter, int i, int j, bool& uns, bool& ovr,
-        const float* __restrict__ srcp = nullptr) {
+        const float* __restrict__ srcp = nullptr,
+        const float* coef = nullptr) {
     const size_t P = static_cast<size_t>(c.X) * c.Y;
     const size_t n = static_cast<size_t>(i) * c.Y + j;
     uint32_t w[CTX_N_WORDS];
     int8_t id4[4];
     load_ctx<SPEC>(w, ctxw, P, n);
     load_idn<SPEC>(id4, idn, P, n);
-    gfc_node<SPEC, EULER, CLOSURE, EXT>(
+    gfc_node<SPEC, EULER, CLOSURE, XF>(
         c, direct_src<SPEC>(c, cin, mf, w, P, i, j), w,
         make_stencil<SPEC>(id4), cout, scr, chemf, chemi, dt, cfl_scen,
-        mu_t_iter, uns, ovr, ExtIn{srcp, nullptr, nullptr, nullptr, i, j});
+        mu_t_iter, uns, ovr,
+        ExtIn{srcp, nullptr, nullptr, nullptr, i, j, coef});
 }
 
 // One node of pass12 on direct global loads.  With the heat stage, the
@@ -1596,8 +1671,12 @@ __device__ __forceinline__ void pass12_partials(const ArrayAcc& acc,
 
 // A CTA of gfc over its tile; EULER: every tile runs the Euler form of the
 // general body (an Euler deck has no spec tiles, spec_supported);
-// CLOSURE: every body runs the closures' form.
-template <int BODY, bool EULER, bool CLOSURE, bool EXT = false, class C>
+// CLOSURE: every body runs the closures' form; XF: the feature form (an
+// extended form but the Euler one stages the table coefficients into
+// `coef` first, CHEM_COEF_MAX floats of shared memory: the Euler form
+// looks up only CP, 4 tables, and ran 1.003-1.006x as long with the
+// staged block as without it on an H100).
+template <int BODY, bool EULER, bool CLOSURE, int XF = XF_FLAT, class C>
 __device__ __forceinline__ void gfc_tile(
         const C& c, const float* __restrict__ cin,
         float* __restrict__ cout, float* __restrict__ scr,
@@ -1606,20 +1685,22 @@ __device__ __forceinline__ void gfc_tile(
         const int32_t* __restrict__ chemi, const float* __restrict__ dtp,
         const float* __restrict__ aux, const int32_t* __restrict__ tiles,
         const int32_t* __restrict__ flags, int32_t* __restrict__ part_i,
-        const float* __restrict__ srcp = nullptr) {
+        const float* __restrict__ srcp = nullptr, float* coef = nullptr) {
     const int tile = cta_tile<BODY>(tiles);
     const int i = (tile / c.nby) * TILE_X + threadIdx.y;
     const int j = (tile % c.nby) * TILE_Y + threadIdx.x;
     bool uns = false, ovr = false;
+    if constexpr (XF != XF_FLAT && !EULER)
+        stage_chem_coef(coef, chemf, chemi);
     if (i < c.X && j < c.Y) {
         if (!EULER && spec_tile<BODY>(flags, tile))
-            gfc_direct<true, false, CLOSURE, EXT>(
+            gfc_direct<true, false, CLOSURE, XF>(
                 c, cin, cout, scr, idn, mf, ctxw, chemf, chemi, *dtp, aux[1],
-                aux[2] > F(0.5), i, j, uns, ovr, srcp);
+                aux[2] > F(0.5), i, j, uns, ovr, srcp, coef);
         else
-            gfc_direct<false, EULER, CLOSURE, EXT>(
+            gfc_direct<false, EULER, CLOSURE, XF>(
                 c, cin, cout, scr, idn, mf, ctxw, chemf, chemi, *dtp, aux[1],
-                aux[2] > F(0.5), i, j, uns, ovr, srcp);
+                aux[2] > F(0.5), i, j, uns, ovr, srcp, coef);
     }
     gfc_partials(c, i, uns, ovr, tile, part_i);
 }

@@ -2,6 +2,8 @@
 // float32: the same stages as fused_step.cu on the decks that need more of
 // core/step and core/physics than its flat forms carry:
 //
+//   gfc_axi_kernel<BODY>          gfc of gfc_kernel on a deck whose one
+//                                 extended feature of gfc is axisymmetry
 //   gfc_ext_kernel<BODY>          gfc of gfc_kernel / gfc_closure_kernel /
 //   gfc_closure_ext_kernel<BODY>  gfc_euler_kernel, on an axisymmetric
 //   gfc_euler_ext_kernel<BODY>    deck (ExtConsts::axi) or one with
@@ -23,12 +25,13 @@
 // * axisymmetric flow: gfc computes the node radius y_r = (j + 0.5) dy
 //   from its column (the strips are X strips, so j is the global column on
 //   every path), adds V / y_r to the dilatation and U / y_r to k-eps's
-//   production, and writes the radial fluxes F (the hoop stress in the V
-//   equation, the k, eps and SA add-ons) to 9 more scratch planes
-//   (SCR_F..); pass12 adds dt / dy F / (j + 1), correctly rounded as JAX's
-//   division, from one reciprocal of j + 1 a node (div_jp1).  It reads F
-//   at the node from the three planes that are not copies: F[0], F[3..6]
-//   are B[0], B[3..6] and F[1] is A[2], the same floats (radial_flux);
+//   production, and writes the radial fluxes F that are not copies of its
+//   fluxes (the hoop stress in the V equation, the k, eps and SA add-ons)
+//   to 3 of 9 more scratch planes (SCR_F + 2, 7, 8); pass12 adds dt / dy
+//   F / (j + 1), correctly rounded as JAX's division, from one reciprocal
+//   of j + 1 a node (div_jp1).  It reads F at the node from those three
+//   planes: F[0], F[3..6] are B[0], B[3..6] and F[1] is A[2], the same
+//   floats (radial_flux), so their six planes stay unwritten;
 // * external sources: pass12 reads the 9-plane source field at the node
 //   (Src dt of pass 1, every body), and gfc reads its planes 7 and 8, which
 //   stand as the turbulence sources where no closure writes them;
@@ -41,26 +44,54 @@
 //
 // No spec tile holds a d2 or NRBC node (generic_interior_map excludes any
 // node with an extra CT bit), so the spec bodies carry only F and Src.
-// pass12 comes in two feature forms fixed at compile time (XF_AXI, XF_ALL
-// in fused_step.cuh), which hf2d_pass12_ext picks from the flags: the
-// axisymmetric-only form carries no d2, NRBC or source code (the timed
-// axisymmetric decks), the all-features form tests each flag at run time.
+// gfc and pass12 come in two feature forms fixed at compile time (XF_AXI,
+// XF_ALL in fused_step.cuh), which hf2d_gfc_ext and hf2d_pass12_ext pick
+// from the flags: the axisymmetric-only forms carry no source code (and
+// pass12's no d2 or NRBC code; the timed axisymmetric decks), the
+// all-features forms test each flag at run time.  d2 and NRBC are
+// pass12's alone, so gfc's axisymmetric-only form runs the d2/NRBC deck
+// too; the closures' and the Euler gfc keep one (all-features) form each.
+// Every extended gfc but the Euler one (4 lookups a node) reads the
+// chemistry tables' slopes, computed once per table on the host, from
+// shared memory (stage_chem_coef, coef_lookup), where table_lookup's
+// twelve lookups a node are a chain of dependent loads and IEEE
+// divisions.
 // The flat forms keep their symbols and code: a deck without these
 // features launches fused_step.cu's kernels (ops/fused_step.py gfc_ext,
 // pass12_ext).
 //
 // What bounds them on an H100: memory traffic, as the flat forms, plus
-// 36 bytes a node for gfc's F write and 12 for pass12's F read (F[2],
-// F[7], F[8]; the other six are A and B it reads anyway) on an
-// axisymmetric deck, and 36 for pass12's Src read and 8 for gfc's on a
-// deck with sources; d2 and NRBC read a few more words at their (boundary)
-// nodes.  PERF.md keeps their times.
+// 12 bytes a node for gfc's F write and 12 for pass12's F read (F[2],
+// F[7], F[8]; the other six are A and B floats) on an axisymmetric deck,
+// and 36 for pass12's Src read and 8 for gfc's on a deck with sources; d2
+// and NRBC read a few more words at their (boundary) nodes.  PERF.md keeps
+// their times.
 #include "fused_step.cuh"
 
+// the table coefficients a CTA stages (stage_chem_coef)
+#define HF2D_COEF __shared__ float4 coef4[CHEM_COEF_MAX / 4];
+#define HF2D_COEF_PTR reinterpret_cast<float*>(coef4)
+
+// Every extended gfc at 3 CTAs an SM, as gfc_closure_ext_kernel: without
+// the bound ptxas gave the spec body 64 registers and 4 CTAs an SM with a
+// spill, and the general bodies larger spills, and on an H100
+// gfc_axi_kernel ran 1.005-1.05x and gfc_euler_ext_kernel 1.04-1.06x as
+// long as with it (PERF.md).
+
 template <int BODY>
-__global__ void __launch_bounds__(CTA_THREADS)
+__global__ void __launch_bounds__(CTA_THREADS, 3)
+gfc_axi_kernel(HF2D_GFC_PARAMS(ExtConsts), const float* __restrict__ srcp) {
+    HF2D_COEF
+    gfc_tile<BODY, false, false, XF_AXI>(HF2D_GFC_FORWARD, srcp,
+                                         HF2D_COEF_PTR);
+}
+
+template <int BODY>
+__global__ void __launch_bounds__(CTA_THREADS, 3)
 gfc_ext_kernel(HF2D_GFC_PARAMS(ExtConsts), const float* __restrict__ srcp) {
-    gfc_tile<BODY, false, false, true>(HF2D_GFC_FORWARD, srcp);
+    HF2D_COEF
+    gfc_tile<BODY, false, false, XF_ALL>(HF2D_GFC_FORWARD, srcp,
+                                         HF2D_COEF_PTR);
 }
 
 // 3 CTAs an SM, as gfc_closure_kernel: at 80 registers the general and
@@ -72,17 +103,21 @@ template <int BODY>
 __global__ void __launch_bounds__(CTA_THREADS, 3)
 gfc_closure_ext_kernel(HF2D_GFC_PARAMS(ExtConsts),
                        const float* __restrict__ srcp) {
-    gfc_tile<BODY, false, true, true>(HF2D_GFC_FORWARD, srcp);
+    HF2D_COEF
+    gfc_tile<BODY, false, true, XF_ALL>(HF2D_GFC_FORWARD, srcp,
+                                        HF2D_COEF_PTR);
 }
 
 template <int BODY>
-__global__ void __launch_bounds__(CTA_THREADS)
+__global__ void __launch_bounds__(CTA_THREADS, 3)
 gfc_euler_ext_kernel(HF2D_GFC_PARAMS(ExtConsts),
                      const float* __restrict__ srcp) {
-    gfc_tile<BODY, true, false, true>(HF2D_GFC_FORWARD, srcp);
+    gfc_tile<BODY, true, false, XF_ALL>(HF2D_GFC_FORWARD, srcp);
 }
 #undef HF2D_GFC_PARAMS
 #undef HF2D_GFC_FORWARD
+#undef HF2D_COEF
+#undef HF2D_COEF_PTR
 
 // pass12's extended forms, each with the budget of pass12_kernel (3 CTAs
 // an SM): pass12_axi_kernel is the axisymmetric-only form (XF_AXI: F /
@@ -119,6 +154,15 @@ pass12_ext_kernel(HF2D_PASS12_EXT_PARAMS) {
 // or NRBC; -1 (no form: such a deck runs pass12_kernel) without any.
 static int pass12_form(const ExtConsts& c) {
     if (c.src || c.d2x || c.d2y || c.nrbc) return XF_ALL;
+    return c.axi ? XF_AXI : -1;
+}
+
+// The same of gfc_ext_kernel's feature forms (ops/fused_step.py gfc_form):
+// the all-features form with sources, else the axisymmetric-only form on
+// an axisymmetric deck (d2 and NRBC are pass12's alone); -1 without
+// either (such a deck runs gfc_kernel).
+static int gfc_form(const ExtConsts& c) {
+    if (c.src) return XF_ALL;
     return c.axi ? XF_AXI : -1;
 }
 
@@ -179,7 +223,8 @@ int hf2d_gfc_ext(int body, const void* consts, const void* cin, void* cout,
         static_cast<const float*>(aux), static_cast<const int32_t*>(tiles), \
         static_cast<const int32_t*>(flags), static_cast<int32_t*>(part_i),  \
         static_cast<const float*>(src)
-    if (c.euler && c.closure)
+    const int form = gfc_form(c);
+    if ((c.euler && c.closure) || form < 0)
         return static_cast<int>(cudaErrorInvalidValue);
     else if (c.closure && body == BODY_GENERAL)
         gfc_closure_ext_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
@@ -200,13 +245,22 @@ int hf2d_gfc_ext(int body, const void* consts, const void* cin, void* cout,
             HF2D_GFC_EXT_ARGS);
     else if (c.euler)
         return static_cast<int>(cudaErrorInvalidValue);
-    else if (body == BODY_GENERAL)
+    else if (form == XF_AXI && body == BODY_GENERAL)
+        gfc_axi_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
+            HF2D_GFC_EXT_ARGS);
+    else if (form == XF_AXI && body == BODY_SPEC)
+        gfc_axi_kernel<BODY_SPEC><<<n_tiles, block, 0, s>>>(
+            HF2D_GFC_EXT_ARGS);
+    else if (form == XF_AXI && body == BODY_DUAL)
+        gfc_axi_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(
+            HF2D_GFC_EXT_ARGS);
+    else if (form == XF_ALL && body == BODY_GENERAL)
         gfc_ext_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
             HF2D_GFC_EXT_ARGS);
-    else if (body == BODY_SPEC)
+    else if (form == XF_ALL && body == BODY_SPEC)
         gfc_ext_kernel<BODY_SPEC><<<n_tiles, block, 0, s>>>(
             HF2D_GFC_EXT_ARGS);
-    else if (body == BODY_DUAL)
+    else if (form == XF_ALL && body == BODY_DUAL)
         gfc_ext_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(
             HF2D_GFC_EXT_ARGS);
     else
@@ -269,8 +323,9 @@ int hf2d_div_jp1_check(const void* as, int n, int jp1_lo, int jp1_hi,
     return static_cast<int>(cudaGetLastError());
 }
 
-// The kernel of stage 5 (gfc_ext), 6 (gfc_closure_ext), 7 (gfc_euler_ext),
-// 8 (pass12_ext, the all-features form) or 9 (pass12_axi) and body
+// The kernel of stage 5 (gfc_ext, the all-features form), 6
+// (gfc_closure_ext), 7 (gfc_euler_ext), 8 (pass12_ext, the all-features
+// form), 9 (pass12_axi) or 10 (gfc_axi) and body
 // (BODY_GENERAL, BODY_SPEC or BODY_DUAL; the Euler form has no spec body),
 // for fused_step.cu's hf2d_kernel_info; null for any other.
 const void* hf2d_ext_kernel_fn(int stage, int body) {
@@ -298,6 +353,10 @@ const void* hf2d_ext_kernel_fn(int stage, int body) {
             return spec ? (const void*)pass12_axi_kernel<BODY_SPEC>
                  : dual ? (const void*)pass12_axi_kernel<BODY_DUAL>
                         : (const void*)pass12_axi_kernel<BODY_GENERAL>;
+        case 10:
+            return spec ? (const void*)gfc_axi_kernel<BODY_SPEC>
+                 : dual ? (const void*)gfc_axi_kernel<BODY_DUAL>
+                        : (const void*)gfc_axi_kernel<BODY_GENERAL>;
         default:
             return nullptr;
     }

@@ -106,9 +106,11 @@ N_SCRATCH = 31
 SCR_LAM_EFF = 29    # lam + lam_t after chemistry, written by gfc<general>
 SCR_SRCADD_E = 30   # SrcAdd of rhoE, written by heat_kernel and read by
                     # the unfolded pass12 (the A/B candidates only)
-SCR_F = 31          # axisymmetric decks: the 9 radial fluxes F, written by
-                    # gfc's extended form and read by pass12's
+SCR_F = 31          # axisymmetric decks: the 9 radial fluxes F, of which
+                    # gfc's extended forms write and pass12's read only
+                    # F_OWN (radial_fluxes)
 N_SCRATCH_AXI = SCR_F + 9
+F_OWN = (2, 7, 8)
 _PRIMS = 18   # carry planes from here on are written by gfc
 
 # the kernels the solver's paths launch (on Euler decks gfc_euler_kernel
@@ -129,14 +131,16 @@ CLOSURE_KERNEL_NAMES = ("gfc_closure_kernel<spec>",
 # the extended forms (axisymmetric flow, external sources; pass12's also
 # d2*-NULL soft BCs and NRBC): kernels of their own, so the flat,
 # sourceless decks keep their symbols and code (``gfc_ext``,
-# ``pass12_ext``); pass12 in two feature forms (``pass12_form``)
+# ``pass12_ext``); gfc (standard k-eps) and pass12 in two feature forms
+# each (``gfc_form``, ``pass12_form``)
+GFC_FORMS = {"axi": "gfc_axi_kernel", "all": "gfc_ext_kernel"}
 PASS12_FORMS = {"axi": "pass12_axi_kernel", "all": "pass12_ext_kernel"}
-EXT_KERNEL_NAMES = ("gfc_ext_kernel<spec>", "gfc_ext_kernel<general>",
-                    "gfc_ext_kernel<dual>", "gfc_closure_ext_kernel<spec>",
-                    "gfc_closure_ext_kernel<general>",
-                    "gfc_closure_ext_kernel<dual>",
-                    "gfc_euler_ext_kernel<general>",
-                    "gfc_euler_ext_kernel<dual>") + tuple(
+EXT_KERNEL_NAMES = tuple(
+    f"{kernel}<{body}>" for kernel in GFC_FORMS.values()
+    for body in ("spec", "general", "dual")) + (
+    "gfc_closure_ext_kernel<spec>", "gfc_closure_ext_kernel<general>",
+    "gfc_closure_ext_kernel<dual>", "gfc_euler_ext_kernel<general>",
+    "gfc_euler_ext_kernel<dual>") + tuple(
     f"{kernel}<{body}>" for kernel in PASS12_FORMS.values()
     for body in ("spec", "general", "dual"))
 PATH_KERNEL_NAMES = (NS_KERNEL_NAMES + EULER_KERNEL_NAMES
@@ -204,6 +208,12 @@ def pass12_ext(params) -> bool:
     return gfc_ext(p) or p.has_d2x or p.has_d2y or p.has_nrbc
 
 
+def _ext_features(p) -> dict:
+    return {"axi": p.ft == fl.FT_AXISYMMETRIC, "src": bool(p.has_ext_src),
+            "d2x": bool(p.has_d2x), "d2y": bool(p.has_d2y),
+            "nrbc": bool(p.has_nrbc)}
+
+
 def pass12_form(params) -> str:
     """The feature form of pass12's extended kernel a deck runs (a key of
     PASS12_FORMS), as the C entry hf2d_pass12_ext picks it from the same
@@ -212,15 +222,38 @@ def pass12_form(params) -> str:
     "all" (``pass12_ext_kernel``, each feature tested at run time) where it
     has sources, d2*-NULL soft BCs or NRBC.  Raises for a deck with none
     (it runs the flat ``pass12_kernel``)."""
-    p = params
-    f = {"axi": p.ft == fl.FT_AXISYMMETRIC, "src": bool(p.has_ext_src),
-         "d2x": bool(p.has_d2x), "d2y": bool(p.has_d2y),
-         "nrbc": bool(p.has_nrbc)}
+    f = _ext_features(params)
     if f["src"] or f["d2x"] or f["d2y"] or f["nrbc"]:
         return "all"
     if f["axi"]:
         return "axi"
     raise ValueError(f"pass12 has no extended form for the features {f}")
+
+
+def gfc_form(params) -> str:
+    """The feature form of gfc's extended kernel (standard k-eps; a key of
+    GFC_FORMS), as the C entry hf2d_gfc_ext picks it from the same flags:
+    "all" (``gfc_ext_kernel``, the source field read where c.src) on a
+    deck with sources, else "axi" (``gfc_axi_kernel``, no source code) on
+    an axisymmetric one; d2*-NULL and NRBC are pass12's alone.  Raises for
+    a deck with neither (it runs the flat ``gfc_kernel``).  The closures'
+    and the Euler gfc have one extended form each."""
+    f = _ext_features(params)
+    if f["src"]:
+        return "all"
+    if f["axi"]:
+        return "axi"
+    raise ValueError(f"gfc has no extended form for the features {f}")
+
+
+def radial_fluxes(scr: torch.Tensor) -> torch.Tensor:
+    """The 9 radial fluxes F of an axisymmetric deck's scratch as pass12
+    reads them (csrc/fused_step.cuh radial_flux): F[0] = B[0], F[1] =
+    A[2] and F[3..6] = B[3..6], the floats gfc writes there under the same
+    guard, and F_OWN from their planes; gfc writes no other F plane."""
+    A, B = scr[9:18], scr[18:27]
+    return torch.stack([B[0], A[2], scr[SCR_F + 2], B[3], B[4], B[5], B[6],
+                        scr[SCR_F + 7], scr[SCR_F + 8]])
 
 
 def n_scratch(params) -> int:
@@ -548,20 +581,62 @@ def kernel_consts(p: SolverParams, plan: TilePlan, heat: bool,
         nrbc_beta0=p.nrbc_beta0)
 
 
+# the extended gfc forms' table coefficients (csrc/fused_step.cuh
+# coef_lookup), which a CTA stages in CHEM_COEF_MAX floats of shared memory
+CHEM_COEF_MAX = 1024
+
+
+def chem_coef(tables) -> np.ndarray:
+    """The coefficient block of ``tables`` ((xs, ys, ascending) a table,
+    in chemi's order), float32: a head of (x0, y0, m1, code) a table, then
+    the tails.  m_s = (y_s - y_{s-1}) / (x_s - x_{s-1}) and m_s - m_{s-1}
+    in float32, whose division and subtraction round as the kernel's
+    table_lookup does, so they are the floats it computes at every node.
+    code 0: two ascending knots (y0 + m1 (q - x0)); > 0: more, at that
+    offset of the block a pair (k, 0) and k pairs (x_{s-1}, m_s -
+    m_{s-1}), s = 2..n-1; -1 (head zeros): one knot or not ascending, which
+    keep table_lookup's code."""
+    head, tail = [], []
+    base = 4 * len(tables)
+    for xs, ys, asc in tables:
+        x = np.asarray(xs, dtype=np.float32)
+        y = np.asarray(ys, dtype=np.float32)
+        if not asc or x.size == 1:
+            head += [0.0, 0.0, 0.0, -1.0]
+            continue
+        with np.errstate(divide="ignore", invalid="ignore"):
+            m = (y[1:] - y[:-1]) / (x[1:] - x[:-1])
+        code = 0
+        if x.size > 2:
+            code = base + len(tail)
+            tail += [x.size - 2, 0.0]
+            for s in range(2, x.size):
+                tail += [x[s - 1], m[s - 1] - m[s - 2]]
+        head += [x[0], y[0], m[0], code]
+    return np.array(head + tail, dtype=np.float32)
+
+
 def pack_chem(chem: ChemTables, p: SolverParams):
     """(chemf, chemi): R of the 4 species then each table's xs and ys, in
     (prop, species) order; chemi holds (offset, knots, ascending) per
-    table."""
+    table.  Then, for the extended gfc forms (chem_coef), the coefficient
+    block at the end of chemf, and its length and offset at the end of
+    chemi (which the flat forms do not read)."""
     vals = [getattr(chem, f"R_{sp}").reshape(1) for sp in _CHEM_SPECIES]
-    off, meta = 4, []
+    off, meta, tables = 4, [], []
     for prop in _CHEM_PROPS:
         for sp in _CHEM_SPECIES:
             xs = getattr(chem, f"{prop}_{sp}_x")
             ys = getattr(chem, f"{prop}_{sp}_y")
-            meta += [off, xs.numel(), int(f"{prop}_{sp}" in p.chem_asc)]
+            asc = f"{prop}_{sp}" in p.chem_asc
+            meta += [off, xs.numel(), int(asc)]
             vals += [xs, ys]
+            tables.append((xs.float().cpu().numpy(),
+                           ys.float().cpu().numpy(), asc))
             off += 2 * xs.numel()
-    chemf = torch.cat(vals)
+    coef = torch.from_numpy(chem_coef(tables)).to(vals[0])
+    chemf = torch.cat(vals + [coef])
+    meta += [coef.numel(), off]
     return chemf, torch.tensor(meta, dtype=torch.int32, device=chemf.device)
 
 
@@ -624,9 +699,11 @@ class FusedStep:
     Chien) it reads meta plane META_Y_PLUS, which the chunk sets from its
     state (``set_y_plus``), so a ``recalc_y_plus`` between chunks reaches
     the next one.  On an axisymmetric deck or one with external sources
-    gfc runs its extended form (``gfc_ext``), and pass12 runs its own
-    there and on decks with d2*-NULL soft BCs or NRBC (``pass12_ext``);
-    they read the source field the chunk sets (``set_src``)."""
+    gfc runs its extended form (``gfc_ext``; standard k-eps in the feature
+    form ``gfc_form``), and pass12 runs its own there and on decks with
+    d2*-NULL soft BCs or NRBC (``pass12_ext``, in the feature form
+    ``pass12_form``); they read the source field the chunk sets
+    (``set_src``)."""
 
     def __init__(self, meta: GridMeta, params: SolverParams,
                  chem: ChemTables, plan: TilePlan, dispatch: str, ctx):
@@ -643,6 +720,9 @@ class FusedStep:
         self.closure = is_closure(p)
         self.has_y_plus = needs_y_plus(p)
         self.gfc_ext, self.pass12_ext = gfc_ext(p), pass12_ext(p)
+        # the feature forms of gfc_ext_kernel and pass12's extended kernel
+        self.gfc_form = (gfc_form(p) if self.gfc_ext and not self.euler
+                         and not self.closure else None)
         self.pass12_form = pass12_form(p) if self.pass12_ext else None
         self.axi = p.ft == fl.FT_AXISYMMETRIC
         self.idn = torch.stack([meta.idXl, meta.idXr, meta.idYu, meta.idYd])
@@ -654,6 +734,12 @@ class FusedStep:
                               * n_more).to(p.torch_dtype)
         self.ctxw = build_packed_ctx(meta, p)
         self.chemf, self.chemi = pack_chem(chem, p)
+        n_coef = int(self.chemi[-2])
+        if self.gfc_ext and n_coef > CHEM_COEF_MAX:
+            raise NotImplementedError(
+                f"the chemistry tables' coefficient block holds {n_coef} "
+                f"floats; the extended gfc kernels stage at most "
+                f"{CHEM_COEF_MAX}")
         self.zero_src = torch.zeros((fl.NUM_EQ, p.MaxX, p.MaxY),
                                     dtype=p.torch_dtype, device=meta.CT.device)
         # the external source field (9, X, Y) the extended forms read
@@ -690,6 +776,8 @@ class FusedStep:
 
     def gfc_name(self, body: str) -> str:
         """The name of gfc's kernel instantiation for ``body``."""
+        if self.gfc_form is not None:
+            return f"{GFC_FORMS[self.gfc_form]}<{body}>"
         kernel = ("gfc_euler" if self.euler else
                   "gfc_closure" if self.closure else "gfc")
         return f"{kernel}{'_ext' if self.gfc_ext else ''}_kernel<{body}>"
@@ -871,7 +959,9 @@ class FusedStep:
         # k and eps, or SA's nu_t (elsewhere the source field's, or 0)
         scr[27:29] = out.Src[fl.i2d_k:]
         if self.axi:
-            scr[SCR_F:SCR_F + 9] = out.F
+            # F's own planes only, as the extended kernels (radial_fluxes)
+            for e in F_OWN:
+                scr[SCR_F + e] = out.F[e]
         if self.has_heat:
             # what the heat stage reads (core/physics.py): lam + lam_t of
             # gfc's output, lam after chemistry and lam_t from the CP
@@ -908,7 +998,7 @@ class FusedStep:
         state = expand(carry_views(cin, dt), p, src).replace(
             S=scr[0:9], A=scr[9:18], B=scr[18:27])
         if self.axi:
-            state = state.replace(F=scr[SCR_F:SCR_F + 9])
+            state = state.replace(F=radial_fluxes(scr))
         if self.has_heat:
             heat = (self.heat_source_plain(cout, scr, dt)
                     if heat_src is None else heat_src)

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from openhyperflow2d_torch import examples as ex
+from openhyperflow2d_torch.ops.fused_step import EXT_KERNEL_NAMES
 from openhyperflow2d_torch.parallel.comm import LocalComm
 from openhyperflow2d_torch.solver.init import build_case
 from openhyperflow2d_torch.solver.runner import Solver
@@ -80,7 +81,7 @@ def test_kernel_strips_match_the_single_domain(name, K, overlap):
     chunk = ss._chunk_fn
     assert chunk.H == (3 if name == "nrbc_d2" else 2)
     assert chunk.halo == chunk.H * K
-    assert all("_ext_kernel" in n
+    assert all(n in EXT_KERNEL_NAMES
                for st in chunk.steps for n in st.iteration_launches())
     d = ss.run_iters(5)
     want, wd = single(name, K)

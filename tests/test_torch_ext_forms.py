@@ -13,12 +13,14 @@ form.
 (ii) Both forms read F[0], F[1] and F[3..6] as the A and B floats gfc wrote
 at the node: F = (B[0], A[2], fn2, B[3..6], f7, f8) under the same guard
 (gfc_node; JAX physics.py:238-245, 267-272).  This holds bit for bit at
-every node after the kernel path's plain gfc (``FusedStep.gfc_plain``,
-float32, 3 iterations in; nodes that fail the guard hold the expanded
-zeros in all three), and after JAX's ``fill_node`` on inputs made from a
-seed with numpy (rho set to 0 at a twentieth of the nodes) at every node
-that passes its guard; a node that fails it keeps its input A, B and F,
-which need not agree.
+every node after the eager gfc that the kernel path's plain gfc runs
+(``core/step.gfc`` from the chunk's expanded carry, float32, 3 iterations
+in; nodes that fail the guard hold the expanded zeros in all three; the
+plain gfc, as the kernels, writes only F[2], F[7] and F[8] to the
+scratch, tests/test_torch_gfc_forms.py), and after JAX's ``fill_node`` on
+inputs made from a seed with numpy (rho set to 0 at a twentieth of the
+nodes) at every node that passes its guard; a node that fails it keeps
+its input A, B and F, which need not agree.
 """
 
 import dataclasses
@@ -33,9 +35,9 @@ from torch_parity import (axisymmetric, jax_nrbc_d2_axisym_deck,
 
 from openhyperflow2d_torch import examples as ex
 from openhyperflow2d_torch.core import flags as fl
+from openhyperflow2d_torch.core.step import expand, gfc
 from openhyperflow2d_torch.ops.fused_step import (EXT_KERNEL_NAMES,
-                                                  PASS12_FORMS, SCR_F,
-                                                  carry_views, n_scratch,
+                                                  PASS12_FORMS, carry_views,
                                                   pass12_form, scan_dt)
 from openhyperflow2d_torch.solver.init import build_case
 from openhyperflow2d_torch.solver.runner import Solver
@@ -125,12 +127,12 @@ def test_f_copies_a_and_b_after_the_plain_gfc(name):
     ca, _, raw, kaux = chunk.prologue(solver.state, 2, solver.last_iter)
     dt = scan_dt(carry_views(ca, solver.state.dt), step.ctx.active,
                  solver.params, raw.cfl_scen[0]).to(torch.float32)
-    nan = float("nan")
-    scr = torch.full((n_scratch(solver.params),) + ca.shape[1:], nan)
-    cb = torch.full_like(ca, nan)
-    part_i = torch.zeros((step.plan.n_tiles, 2), dtype=torch.int32)
-    step.gfc_plain(ca, cb, scr, dt, kaux[0], part_i)
-    A, B, F = scr[9:18], scr[18:27], scr[SCR_F:SCR_F + 9]
+    full = expand(carry_views(ca, dt), step.params, step.src,
+                  y_plus=step.y_plus(), lam_t=step.lam_t())
+    out, _, _ = gfc(full, step.meta, step.params, step.chem,
+                    step._aux(kaux[0]), return_fields=True, ctx=step.ctx,
+                    heat=False)
+    A, B, F = out.A, out.B, out.F
     assert torch.isfinite(F).all()
     assert torch.equal(bits(F[0]), bits(B[0]))
     assert torch.equal(bits(F[1]), bits(A[2]))
