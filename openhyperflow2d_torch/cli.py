@@ -18,10 +18,11 @@ path (the hand-written CUDA kernels, ops/fused_step), chosen by default by
 ``choose_step_path`` (CUDA, float32, uniform mesh); ``--devices N`` runs N
 X strips in this process (``LocalComm``); under ``torchrun`` (WORLD_SIZE >
 1) one strip a rank over ``torch.distributed`` (``DistComm``), the primary
-rank writing the files.  Not taken from the JAX CLI: ``--pallas-tile``
-(a TPU tile; the CUDA tile is fixed) and ``--coordinator`` (torchrun's
-environment stands in for it); ``--swap`` (the .hf2d swap file) is not
-ported yet and raises.
+rank writing the files.  ``--swap`` (default on, as in the JAX CLI)
+resumes from ``<outdir>/<Project>.hf2d`` when it is there with the grid's
+size, and rewrites it every outer cycle; ``--no-swap`` turns both off.  Not
+taken from the JAX CLI: ``--pallas-tile`` (a TPU tile; the CUDA tile is
+fixed) and ``--coordinator`` (torchrun's environment stands in for it).
 """
 
 from __future__ import annotations
@@ -66,15 +67,17 @@ def main(argv=None):
     ap.add_argument("--fast-math", action="store_true",
                     help="reciprocal-multiply transforms (ulp-level "
                     "rounding changes)")
-    ap.add_argument("--swap", default=False,
+    ap.add_argument("--swap", default=True,
                     action=argparse.BooleanOptionalAction,
-                    help="reference .hf2d swap-file resume: not ported "
-                    "yet (default off; --swap raises)")
+                    help="reference .hf2d swap-file semantics: auto-resume "
+                    "from <outdir>/<Project>.hf2d when present, sync it "
+                    "every outer cycle (--no-swap disables)")
     args = ap.parse_args(argv)
 
     from .config.deck import load_deck
     from .geometry.sources import apply_sources
     from .io_out.host import host_view
+    from .io_out.swapfile import write_swap_file
     from .io_out.tecplot import (save_data_2d, save_monitors_header,
                                  save_monitors_row, save_rms_header,
                                  save_rms_rows)
@@ -90,17 +93,14 @@ def main(argv=None):
     os.makedirs(args.outdir, exist_ok=True)
     print(f"Load {args.deck!r} ...", flush=True)
     deck = load_deck(args.deck)
-    if args.swap:
-        swap = os.path.join(args.outdir, deck.get_str(
-            "ProjectName", "", required=False) + deck.get_str(
-            "GasSwapFile", ".hf2d", required=False))
-        raise NotImplementedError(
-            f"--swap: the .hf2d swap file ({swap!r}) is not ported yet; "
-            f"run without --swap (--restore resumes from a checkpoint)")
-    case = build_case(deck, dtype=dtype, serial_dt_mode=args.serial_dt)
+    case = build_case(deck, dtype=dtype, serial_dt_mode=args.serial_dt,
+                      use_swap=args.swap, swap_dir=args.outdir)
     name = case.project_name or "out"
     print(f"X={case.params.MaxX} Y={case.params.MaxY} "
           f"dx={case.params.dx} dy={case.params.dy} dtype={dtype}")
+    if case.preloaded:
+        print(f"Mapping computation area from {case.swap_path!r} "
+              f"(PreloadFlag=1, GlobalTime={case.preload_time:.6g})")
 
     if args.fast_math:
         import dataclasses
@@ -276,6 +276,9 @@ def main(argv=None):
             save_y_heat_flux(os.path.join(args.outdir, f"HeatFlux-Y-{name}"),
                              case.grid, st, case.params.Ts0)
         save_checkpoint(ckpt_path, solver, st=fields)
+        if args.swap and case.swap_path:
+            # per-cycle swap sync (deeps2d_core.cpp:1818-1848)
+            write_swap_file(case.swap_path, solver, case.grid, st=fields)
 
         if solver.stats.unstable:
             err_path = os.path.join(args.outdir, f"{name}{case.error_suffix}")

@@ -11,9 +11,10 @@ uniform meshes: the Prandtl family, the k-eps variants, Spalart-Allmaras
 and Smagorinsky (``_turb_mod_rans``, with the axisymmetric add-ons of
 k-eps and SA); so does the conjugate wall-heat stage of non-adiabatic
 walls (``calc_heat_on_wall_sources``).  Axisymmetric flow (``p.ft``) adds
-the radial flux F and the V / r terms (``fill_node``).  The moving-wall
-sources (``isSrcAdd``) are not ported; ``check_supported``
-(solver/runner.py) refuses such cases before anything runs.
+the radial flux F and the V / r terms (``fill_node``); ``isSrcAdd`` adds the
+moving-wall sources at no-slip wall nodes.  On non-uniform meshes the
+moving-wall sources and the Smagorinsky width read the node's own spacing
+(``state.node_dx_dy``).
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ import torch
 
 from ..config.tables import table_lookup
 from . import flags as fl
-from .state import ChemTables, GridMeta, SolverParams, SolverState
+from .state import (ChemTables, GridMeta, SolverParams, SolverState,
+                    node_dx_dy)
 from .static_ctx import (StaticCtx, _sxl, _sxr, _syd, _syu,
                          build_static_ctx, iscond)
 
@@ -161,8 +163,22 @@ def fill_node(state: SolverState, meta: GridMeta, params: SolverParams,
         s[fl.i2d_RhoV] = wsel(wall_law, w_mag * meta.BGY, s[fl.i2d_RhoV])
         U = wsel(wall_law, div_rho(s[fl.i2d_RhoU]), U)
         V = wsel(wall_law, div_rho(s[fl.i2d_RhoV]), V)
-        # WALL_NO_SLIP: gas moves with the wall (moving-wall sources, the
-        # isSrcAdd branch, are not ported: check_supported refuses them)
+        # WALL_NO_SLIP: optional moving-wall sources, gas moves with wall
+        U_pre = wsel(wall_ns, div_rho(s[fl.i2d_RhoU]), U)
+        V_pre = wsel(wall_ns, div_rho(s[fl.i2d_RhoV]), V)
+        if p.isSrcAdd:
+            # per-node dx/dy on non-uniform meshes (hyper_flow_node.hpp:
+            # 463-464 reads the node's own spacing)
+            ndx, ndy = node_dx_dy(meta, p)
+            sa_rho = (meta.BGX * (U_pre - meta.Uw) * rho / ndx
+                      + meta.BGY * (V_pre - meta.Vw) * rho / ndy)
+            src_add[fl.i2d_Rho] = wsel(wall_ns, sa_rho, zero)
+            src_add[fl.i2d_RhoU] = wsel(
+                wall_ns, meta.BGX * (U_pre - meta.Uw) * rho, zero)
+            src_add[fl.i2d_RhoV] = wsel(
+                wall_ns, meta.BGY * (V_pre - meta.Vw) * rho, zero)
+            for c in range(fl.NUM_COMPONENTS):
+                src_add[4 + c] = wsel(wall_ns, sa_rho * state.Yc[c], zero)
         U = wsel(wall_ns, meta.Uw, U)
         V = wsel(wall_ns, meta.Vw, V)
         s[fl.i2d_RhoU] = wsel(wall_ns, U * rho, s[fl.i2d_RhoU])
@@ -281,7 +297,7 @@ def _turb_mod_rans(state, meta, p, s, U, V, a_l, b_l, f_l, src, mu_t, lam_t,
     """TurbModRANS2D (hyper_flow_node.hpp:601-957) over the grid, every
     closure of the JAX package (physics.py:299-542): the Prandtl family
     (Prandtl, van Driest, Escudier, Klebanoff), k-eps (standard, Chien,
-    JL, LSY, RNG), Spalart-Allmaras and Smagorinsky on the uniform mesh.
+    JL, LSY, RNG), Spalart-Allmaras and Smagorinsky.
 
     Mutates the plane lists (s, a_l, b_l, f_l, src) for the turbulence
     equations; returns (mu_t, lam_t).  The families are selected
@@ -498,11 +514,16 @@ def _turb_mod_rans(state, meta, p, s, U, V, a_l, b_l, f_l, src, mu_t, lam_t,
         mu_t = wsel(band(m_sa, is_mu_t), mu_t_sa, mu_t)
         lam_t = wsel(band(m_sa, is_mu_t), mu_t * state.CP, lam_t)
 
-    # ---------------- Smagorinsky LES (927-956), uniform mesh --------------
+    # ---------------- Smagorinsky LES (927-956) ----------------------------
     if has_smag:
         m_smag = ctx.m_smag
         Cs = 0.1
-        delta_les = (p.dx * p.dy) ** 0.5
+        if p.uniform_mesh:
+            delta_les = (p.dx * p.dy) ** 0.5
+        else:
+            # per-node filter width sqrt(dx*dy) (hyper_flow_node.hpp:939)
+            ndx, ndy = node_dx_dy(meta, p)
+            delta_les = torch.sqrt(ndx * ndy)
         Wxy_s = 0.5 * (state.dVdx - state.dUdy)
         Omega_s = torch.sqrt(2.0 * Wxy_s * Wxy_s)
         mu_t_sm = torch.clamp_min(rho * (Cs * delta_les) ** 2 * Omega_s, 0.0)

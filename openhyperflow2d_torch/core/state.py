@@ -95,6 +95,14 @@ class GridMeta:
     dy_map: torch.Tensor = None
 
 
+def node_dx_dy(meta: GridMeta, params: "SolverParams"):
+    """Per-node spacing: (dx, dy) scalars for uniform meshes, the staged
+    (X, Y) maps otherwise (FlowNode2D::dx/dy, hyper_flow_node.hpp:150)."""
+    if params.uniform_mesh:
+        return params.dx, params.dy
+    return meta.dx_map, meta.dy_map
+
+
 _CHEM_SPECIES = ("Fuel", "OX", "cp", "air")
 _CHEM_PROPS = ("Cp", "lam", "mu")
 

@@ -270,7 +270,7 @@ def _node_class(ct):
 
 def _float_planes(meta, params, dtype, wall):
     """Weights and length scales rebuilt from the meta planes with exactly
-    build_static_ctx's expressions (uniform mesh)."""
+    build_static_ctx's expressions."""
     p = params
     n1 = meta.idXl.to(dtype)
     n2 = meta.idXr.to(dtype)
@@ -280,7 +280,13 @@ def _float_planes(meta, params, dtype, wall):
     m_m = torch.clamp_min(n3 + n4, 1.0)
     rn_n = 1.0 / n_n
     rm_m = 1.0 / m_m
-    l_base = torch.clamp_min(meta.l_min, min(p.dx, p.dy)) * 0.41
+    if p.uniform_mesh:
+        l_base = torch.clamp_min(meta.l_min, min(p.dx, p.dy)) * 0.41
+    else:
+        # per-node min(dy, dx) on non-uniform meshes (hyper_flow_node.hpp:
+        # 608 reads the node's own spacing for the mixing-length floor)
+        min_dxdy = torch.minimum(meta.dx_map, meta.dy_map).to(dtype)
+        l_base = torch.maximum(meta.l_min, min_dxdy) * 0.41
     return dict(
         n1=n1, n2=n2, n3=n3, n4=n4, rn_n=rn_n, rm_m=rm_m,
         dx1nn=rn_n / p.dx, dy1mm=rm_m / p.dy,
@@ -307,7 +313,7 @@ def build_packed_ctx(meta, params):
     if not p.uniform_mesh:
         raise NotImplementedError(
             "the packed StaticCtx holds the uniform-mesh mixing-length "
-            "floor min(dx, dy); non-uniform meshes are not ported")
+            "floor min(dx, dy); the kernel path runs uniform meshes only")
     ct, tct = meta.CT, meta.TCT
     solid, fc, active = _node_class(ct)
     stacks = {f: [] for f in _CTX_BOOL_STACKS}
@@ -339,7 +345,7 @@ def unpack_static_ctx(packed, meta, params) -> StaticCtx:
     if not p.uniform_mesh:
         raise NotImplementedError(
             "the packed StaticCtx holds the uniform-mesh mixing-length "
-            "floor min(dx, dy); non-uniform meshes are not ported")
+            "floor min(dx, dy); the kernel path runs uniform meshes only")
     dtype = p.torch_dtype
     idx = 0
 
@@ -422,11 +428,8 @@ def specialized_interior_ctx(meta, params) -> StaticCtx:
 
 
 def build_static_ctx(meta, params) -> StaticCtx:
-    """Decode GridMeta + SolverParams into a StaticCtx (uniform mesh)."""
+    """Decode GridMeta + SolverParams into a StaticCtx."""
     p = params
-    if not p.uniform_mesh:
-        raise NotImplementedError(
-            "non-uniform meshes (per-node dx/dy maps) are not ported")
     ct, tct = meta.CT, meta.TCT
     dtype = p.torch_dtype
     solid, fc, active = _node_class(ct)

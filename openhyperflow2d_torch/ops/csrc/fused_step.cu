@@ -559,6 +559,7 @@ int hf2d_heat(const void* consts, const void* cout, void* scr,
 }
 
 const void* hf2d_ext_kernel_fn(int stage, int body);   // fused_step_ext.cu
+const void* hf2d_mw_kernel_fn(int stage, int body);    // fused_step_mw.cu
 
 // Launch facts of one kernel, for the measurements of chip_smoke.py:
 // out[0] registers a thread, out[1] local memory bytes a thread (spills and
@@ -570,18 +571,21 @@ const void* hf2d_ext_kernel_fn(int stage, int body);   // fused_step_ext.cu
 // BODY_SPEC or BODY_DUAL); the extended forms 5 gfc_ext, 6
 // gfc_closure_ext, 7 gfc_euler_ext, 8 pass12_ext (the all-features form),
 // 9 pass12_axi (the axisymmetric-only form), 10 gfc_axi (gfc's
-// axisymmetric-only form) (hf2d_ext_kernel_fn).
+// axisymmetric-only form) (hf2d_ext_kernel_fn); the moving-wall forms 11
+// gfc_mw, 12 gfc_closure_mw, 13 gfc_euler_mw, 14 pass12_mw
+// (hf2d_mw_kernel_fn).
 int hf2d_kernel_info(int kernel, int* out) {
     const void* fn = nullptr;
     const int stage = kernel / 8, body = kernel % 8;
     size_t dyn = 0;
     int ctas = 0, per_sm = 0, err = 0;
-    if (stage > 10 || (stage < 2 && body > BODY_STAGED)
+    if (stage > 14 || (stage < 2 && body > BODY_STAGED)
         || (stage == 3 && body != BODY_GENERAL && body != BODY_DUAL)
         || (stage == 4 && body > BODY_DUAL))
         return static_cast<int>(cudaErrorInvalidValue);
     if (stage >= 5) {
-        fn = hf2d_ext_kernel_fn(stage, body);
+        fn = stage >= 11 ? hf2d_mw_kernel_fn(stage, body)
+                         : hf2d_ext_kernel_fn(stage, body);
         if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     } else if (stage < 2 && body == BODY_STAGED) {
         const WindowKernel& k = stage == 0 ? GFC_WINDOW : PASS12_WINDOW;

@@ -73,8 +73,10 @@ struct ExtConsts : ClosureConsts {
     int nrbc;              // non-reflected BCs: beta_min = nrbc_beta0 on
                            // CT_NONREFLECTED nodes (the same bodies)
     float nrbc_beta0;      // float(nrbc_beta0)
+    int wall_src;          // moving-wall sources (isSrcAdd): the entries
+                           // launch the XF_MW forms (fused_step_mw.cu)
 };
-static_assert(sizeof(ExtConsts) == sizeof(ClosureConsts) + 6 * 4,
+static_assert(sizeof(ExtConsts) == sizeof(ClosureConsts) + 7 * 4,
               "ExtConsts is ClosureConsts and its fields, unpadded");
 
 // What the extended forms read besides their stage's planes: the external
@@ -94,11 +96,15 @@ struct ExtIn {
 // The feature forms of the node code, fixed at compile time: the flat
 // forms (none), the axisymmetric-only form (axisymmetry and nothing else:
 // no source, d2 or NRBC code; pass12 also takes no collapse of the node's
-// own), and the all-features form, which tests each of c.axi, c.src,
-// c.d2x, c.d2y and c.nrbc at run time.
+// own), the all-features form, which tests each of c.axi, c.src, c.d2x,
+// c.d2y and c.nrbc at run time, and the moving-wall form: the
+// all-features form with the moving-wall sources (isSrcAdd; gfc writes
+// their six planes SCR_MW.. at no-slip wall nodes, pass12 adds them
+// there), which only a deck with c.wall_src launches.
 constexpr int XF_FLAT = 0;
 constexpr int XF_AXI = 1;
 constexpr int XF_ALL = 2;
+constexpr int XF_MW = 3;
 
 // c.axi / c.src of a feature form: read in the extended forms, false in
 // the flat forms (whose constants have no such fields); c.src is false in
@@ -113,7 +119,7 @@ __device__ __forceinline__ bool ext_axi(const C& c) {
 }
 template <int XF, class C>
 __device__ __forceinline__ bool ext_src(const C& c) {
-    if constexpr (XF == XF_ALL) return c.src != 0; else return false;
+    if constexpr (XF >= XF_ALL) return c.src != 0; else return false;
 }
 
 // kernel bodies (ops/fused_step.py _BODY_CODE): GENERAL is the general
@@ -1038,7 +1044,9 @@ __device__ __forceinline__ void gfc_node(
     }
     h_form = h_form + c.hu[3] * rho_air;
 
-    // wall handling (hpp:447-488)
+    // wall handling (hpp:447-488); XF_MW: the moving-wall sources of
+    // equations 0, 1, 2, 4, 5, 6 (mw_slot)
+    float mw[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     if (c.has_walls) {
         if (wall_law) {
             const float wm = sqrtf(U * U + V * V + F(1.e-30));
@@ -1048,6 +1056,23 @@ __device__ __forceinline__ void gfc_node(
             V = div_rho(s[2]);
         }
         if (wall_ns) {
+            if constexpr (XF == XF_MW) {
+                // the moving-wall sources from the velocity before the
+                // no-slip overwrite (physics.py fill_node, isSrcAdd; the
+                // kernel path's mesh is uniform: the node's dx, dy are
+                // the deck's)
+                const float rx = src.aux(META_BGX)
+                                 * (div_rho(s[1]) - src.aux(META_UW)) * rho;
+                const float ry = src.aux(META_BGY)
+                                 * (div_rho(s[2]) - src.aux(META_VW)) * rho;
+                const float sa = rx / c.dx + ry / c.dy;
+                mw[0] = sa;
+                mw[1] = rx;
+                mw[2] = ry;
+#pragma unroll
+                for (int k = 0; k < 3; ++k)
+                    mw[3 + k] = sa * ld(CARRY_YC + k, NB_C);
+            }
             U = src.aux(META_UW);
             V = src.aux(META_VW);
             s[1] = U * rho;
@@ -1150,6 +1175,15 @@ __device__ __forceinline__ void gfc_node(
             scr[(SCR_F + 2) * P + n] = guard ? fn2 : 0.f;
             scr[(SCR_F + 7) * P + n] = guard ? f7 : 0.f;
             scr[(SCR_F + 8) * P + n] = guard ? f8 : 0.f;
+        }
+    }
+    if constexpr (XF == XF_MW) {
+        // written at the no-slip wall nodes alone, where pass12 reads them
+        // (0 where the guard fails: the expanded state's SrcAdd)
+        if (wall_ns) {
+#pragma unroll
+            for (int k = 0; k < 6; ++k)
+                scr[(SCR_MW + k) * P + n] = guard ? mw[k] : 0.f;
         }
     }
     const float U_f = guard ? U : U0;
@@ -1382,7 +1416,14 @@ __device__ __forceinline__ float radial_flux(const Src& src, int e) {
                               : src.at(SCR_B + e, NB_C);
 }
 
-// XF: the extended forms (ExtConsts) of XF_AXI or XF_ALL.  XF_ALL: d2
+// The moving-wall source plane of equation e (0, 1, 2, 4, 5, 6): SCR_MW +
+// mw_slot(e).
+__device__ __forceinline__ constexpr int mw_slot(int e) {
+    return e < 3 ? e : e - 1;
+}
+
+// XF: the extended forms (ExtConsts) of XF_AXI, XF_ALL or XF_MW (XF_ALL
+// and the moving-wall sources at no-slip wall nodes).  XF_ALL: d2
 // averaging of the flux differences where dx2/dy2 is set and the per-node
 // NRBC beta_min (general and dual bodies only: no spec tile holds such a
 // node), F / (j + 1) of an axisymmetric deck and Src dt of a deck with
@@ -1395,15 +1436,15 @@ __device__ __forceinline__ void pass12_node(
         const Stencil& st, float* __restrict__ cout, float dt,
         float beta_scen, bool own, bool store, const Heat& heat, Acc& acc,
         const ExtIn& ext = ExtIn{}) {
-    static_assert(XF == XF_FLAT || XF == XF_AXI || XF == XF_ALL,
-                  "a feature form of pass12");
+    static_assert(XF == XF_FLAT || XF == XF_AXI || XF == XF_ALL
+                  || XF == XF_MW, "a feature form of pass12");
     const size_t P = src.P;
     const size_t n = src.n;
     const float dtdx = dt / c.dx;
     const float dtdy = dt / c.dy;
     float bm = fminf(c.beta0, beta_scen);
     Collapse kc{false, false, false, false};   // XF_ALL: the node's collapse
-    if constexpr (XF == XF_ALL && !SPEC) {
+    if constexpr (XF >= XF_ALL && !SPEC) {
         if (c.nrbc && ctx_bit(w, CTX_NRBC)) bm = c.nrbc_beta0;
         kc = collapse<false>(c, w, ext.i, ext.j);
     }
@@ -1439,7 +1480,7 @@ __device__ __forceinline__ void pass12_node(
         float dXX = dSdx, y_term = dSdy;
         if constexpr (XF == XF_AXI)
             y_term = y_term + div_jp1(radial_flux(src, e), jp1, rj);
-        if constexpr (XF == XF_ALL) {
+        if constexpr (XF >= XF_ALL) {
             if constexpr (!SPEC) {
                 if (c.d2x && ctx_bit(w, CTX_DX2 + e)) {
                     const float l = kc.l ? nb_flux_x(c, ext, P, ext.i - 1,
@@ -1463,6 +1504,11 @@ __device__ __forceinline__ void pass12_node(
         float next = S_eff * beta + (F(1.0) - beta) * blend
                      - (dtdx * dXX + dtdy * y_term) + sk * dt;
         if (!SPEC && c.heat && e == 3) next = next + heat();   // + SrcAdd
+        if constexpr (XF == XF_MW && !SPEC) {
+            // + SrcAdd of the moving wall (no spec tile holds a wall node)
+            if (e != 3 && e < 7 && MASK(WALL_NS, false))
+                next = next + src.at(SCR_MW + mw_slot(e), NB_C);
+        }
         if (!evolve) next = S_eff;
 
         // pass 2: residual and blending factor (1062-1121)

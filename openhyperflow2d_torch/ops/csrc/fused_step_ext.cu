@@ -13,6 +13,9 @@
 //   pass12_ext_kernel<BODY>       pass12 of pass12_kernel on a deck with
 //                                 sources, d2*-NULL soft BCs or NRBC
 //
+// (A deck with moving-wall sources runs fused_step_mw.cu's forms of these,
+// through the same entries.)
+//
 // They replace the same TPU kernel as the flat forms
 // (openhyperflow2d_tpu/ops/pallas_step.py _machinery.make_fused, general
 // body :456-722, spec body :719-720, dual body :702-718, scatter form
@@ -200,9 +203,23 @@ div_jp1_check_kernel(const float* __restrict__ as, int n, int jp1_lo,
 // ---------------------------------------------------------------------------
 // C entry points: hf2d_gfc / hf2d_pass12 of fused_step.cu with the source
 // field `src` (9 planes of the grid; read only where ExtConsts::src) last
-// but the stream; `consts` points to an ExtConsts.  No staged body.
+// but the stream; `consts` points to an ExtConsts.  No staged body.  A deck
+// with moving-wall sources (ExtConsts::wall_src) runs the moving-wall forms
+// of fused_step_mw.cu, whatever its other features.
 // ---------------------------------------------------------------------------
 extern "C" {
+
+int hf2d_gfc_mw(int body, const void* consts, const void* cin, void* cout,
+                void* scr, const void* idn, const void* mf,
+                const void* ctxw, const void* chemf, const void* chemi,
+                const void* dt, const void* aux, const void* tiles,
+                int n_tiles, const void* flags, void* part_i,
+                const void* src, void* stream);
+int hf2d_pass12_mw(int body, const void* consts, const void* cin,
+                   void* cout, const void* scr, const void* idn,
+                   const void* ctxw, const void* dt, const void* aux,
+                   const void* tiles, int n_tiles, const void* flags,
+                   void* part_f, const void* src, void* stream);
 
 int hf2d_gfc_ext(int body, const void* consts, const void* cin, void* cout,
                  void* scr, const void* idn, const void* mf,
@@ -212,6 +229,10 @@ int hf2d_gfc_ext(int body, const void* consts, const void* cin, void* cout,
                  const void* src, void* stream) {
     if (n_tiles == 0) return 0;
     const ExtConsts c = *static_cast<const ExtConsts*>(consts);
+    if (c.wall_src)
+        return hf2d_gfc_mw(body, consts, cin, cout, scr, idn, mf, ctxw,
+                           chemf, chemi, dt, aux, tiles, n_tiles, flags,
+                           part_i, src, stream);
     const dim3 block(TILE_Y, TILE_X);
     auto s = static_cast<cudaStream_t>(stream);
 #define HF2D_GFC_EXT_ARGS                                                    \
@@ -276,6 +297,10 @@ int hf2d_pass12_ext(int body, const void* consts, const void* cin,
                     void* part_f, const void* src, void* stream) {
     if (n_tiles == 0) return 0;
     const ExtConsts c = *static_cast<const ExtConsts*>(consts);
+    if (c.wall_src)
+        return hf2d_pass12_mw(body, consts, cin, cout, scr, idn, ctxw, dt,
+                              aux, tiles, n_tiles, flags, part_f, src,
+                              stream);
     const dim3 block(TILE_Y, TILE_X);
     auto s = static_cast<cudaStream_t>(stream);
 #define HF2D_PASS12_EXT_ARGS                                                 \

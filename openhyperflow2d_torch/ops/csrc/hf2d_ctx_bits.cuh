@@ -95,6 +95,11 @@ constexpr int N_SCRATCH = 31;
 // form writes them, pass12's reads them at the node)
 constexpr int SCR_F = 31;
 constexpr int N_SCRATCH_AXI = SCR_F + 9;
+// decks with moving-wall sources (isSrcAdd): their SrcAdd of equations 0,
+// 1, 2, 4, 5, 6 after the F planes (the XF_MW forms write them at no-slip
+// wall nodes, pass12 reads them there)
+constexpr int SCR_MW = N_SCRATCH_AXI;
+constexpr int N_SCRATCH_MW = SCR_MW + 6;
 
 // ---- meta planes ----------------------------------------------------------
 constexpr int META_IDXL = 0;    // int8 (4, X, Y): idXl, idXr, idYu, idYd

@@ -50,7 +50,12 @@ Smagorinsky, or a k-eps variant) run gfc as ``gfc_closure_kernel``, whose
 node code carries every closure of the JAX package, and read y+ from the
 chunk-constant meta plane META_Y_PLUS where the closure does (van Driest,
 Chien; JAX stages it at pallas_step.py:407-410).  Their spec tiles exist
-only where the deck has k-eps nodes (``spec_supported``).
+only where the deck has k-eps nodes (``spec_supported``).  A deck with
+moving-wall sources (``isSrcAdd``) runs the moving-wall forms of every
+family (csrc/fused_step_mw.cu): gfc writes the SrcAdd of the
+equations MW_EQ at its no-slip wall nodes into scratch planes SCR_MW..,
+pass12 adds them there, beside the folded heat source of rhoE.  The
+kernel path runs uniform meshes only, as JAX's Pallas path does.
 
 The loop reads nothing back to the host and copies nothing to the device:
 dt and the per-iteration scalars stay on the device, in the working dtype,
@@ -111,6 +116,12 @@ SCR_F = 31          # axisymmetric decks: the 9 radial fluxes F, of which
                     # F_OWN (radial_fluxes)
 N_SCRATCH_AXI = SCR_F + 9
 F_OWN = (2, 7, 8)
+# decks with moving-wall sources (isSrcAdd): SrcAdd of the equations MW_EQ
+# in 6 planes after the F planes, which the moving-wall forms write and read
+# at no-slip wall nodes alone
+SCR_MW = N_SCRATCH_AXI
+MW_EQ = (0, 1, 2, 4, 5, 6)
+N_SCRATCH_MW = SCR_MW + len(MW_EQ)
 _PRIMS = 18   # carry planes from here on are written by gfc
 
 # the kernels the solver's paths launch (on Euler decks gfc_euler_kernel
@@ -133,18 +144,29 @@ CLOSURE_KERNEL_NAMES = ("gfc_closure_kernel<spec>",
 # sourceless decks keep their symbols and code (``gfc_ext``,
 # ``pass12_ext``); gfc (standard k-eps) and pass12 in two feature forms
 # each (``gfc_form``, ``pass12_form``)
-GFC_FORMS = {"axi": "gfc_axi_kernel", "all": "gfc_ext_kernel"}
-PASS12_FORMS = {"axi": "pass12_axi_kernel", "all": "pass12_ext_kernel"}
+GFC_FORMS = {"axi": "gfc_axi_kernel", "all": "gfc_ext_kernel",
+             "mw": "gfc_mw_kernel"}
+PASS12_FORMS = {"axi": "pass12_axi_kernel", "all": "pass12_ext_kernel",
+                "mw": "pass12_mw_kernel"}
 EXT_KERNEL_NAMES = tuple(
-    f"{kernel}<{body}>" for kernel in GFC_FORMS.values()
+    f"{GFC_FORMS[form]}<{body}>" for form in ("axi", "all")
     for body in ("spec", "general", "dual")) + (
     "gfc_closure_ext_kernel<spec>", "gfc_closure_ext_kernel<general>",
     "gfc_closure_ext_kernel<dual>", "gfc_euler_ext_kernel<general>",
     "gfc_euler_ext_kernel<dual>") + tuple(
-    f"{kernel}<{body}>" for kernel in PASS12_FORMS.values()
+    f"{PASS12_FORMS[form]}<{body}>" for form in ("axi", "all")
     for body in ("spec", "general", "dual"))
+# the moving-wall forms (csrc/fused_step_mw.cu): every deck with isSrcAdd,
+# whatever its other features, runs these
+MW_KERNEL_NAMES = tuple(
+    f"{kernel}<{body}>" for kernel in ("gfc_mw_kernel",
+                                       "gfc_closure_mw_kernel")
+    for body in ("spec", "general", "dual")) + (
+    "gfc_euler_mw_kernel<general>", "gfc_euler_mw_kernel<dual>") + tuple(
+    f"pass12_mw_kernel<{body}>" for body in ("spec", "general", "dual"))
 PATH_KERNEL_NAMES = (NS_KERNEL_NAMES + EULER_KERNEL_NAMES
-                     + CLOSURE_KERNEL_NAMES + EXT_KERNEL_NAMES)
+                     + CLOSURE_KERNEL_NAMES + EXT_KERNEL_NAMES
+                     + MW_KERNEL_NAMES)
 KERNEL_NAMES = PATH_KERNEL_NAMES + ("heat_kernel", "gfc_kernel<staged>",
                                     "pass12_kernel<staged>")
 DISPATCH_FORMS = ("lists", "dual")
@@ -193,11 +215,14 @@ def is_closure(params) -> bool:
 
 
 def gfc_ext(params) -> bool:
-    """Whether gfc runs its extended form (``*_ext_kernel``): axisymmetric
-    flow (the radial fluxes F into scratch planes SCR_F.., the V / r terms)
-    or external sources (the turbulence sources fall back to the source
-    field's, as fill_node's do)."""
-    return params.ft == fl.FT_AXISYMMETRIC or params.has_ext_src
+    """Whether gfc runs an extended form (``*_ext_kernel``, or ``*_mw_kernel``
+    with moving-wall sources): axisymmetric flow (the radial fluxes F into
+    scratch planes SCR_F.., the V / r terms), external sources (the
+    turbulence sources fall back to the source field's, as fill_node's do)
+    or moving-wall sources (their moving-wall forms,
+    csrc/fused_step_mw.cu)."""
+    return (params.ft == fl.FT_AXISYMMETRIC or params.has_ext_src
+            or params.isSrcAdd)
 
 
 def pass12_ext(params) -> bool:
@@ -220,9 +245,13 @@ def pass12_form(params) -> str:
     flags: "axi" (``pass12_axi_kernel``, F / (j + 1) and no other
     feature's code) where axisymmetry is the deck's one extended feature,
     "all" (``pass12_ext_kernel``, each feature tested at run time) where it
-    has sources, d2*-NULL soft BCs or NRBC.  Raises for a deck with none
-    (it runs the flat ``pass12_kernel``)."""
+    has sources, d2*-NULL soft BCs or NRBC, "mw" (``pass12_mw_kernel``,
+    the all-features form and the moving-wall sources) where it has
+    moving-wall sources.  Raises for a deck with none (it runs the flat
+    ``pass12_kernel``)."""
     f = _ext_features(params)
+    if params.isSrcAdd:
+        return "mw"
     if f["src"] or f["d2x"] or f["d2y"] or f["nrbc"]:
         return "all"
     if f["axi"]:
@@ -236,9 +265,13 @@ def gfc_form(params) -> str:
     "all" (``gfc_ext_kernel``, the source field read where c.src) on a
     deck with sources, else "axi" (``gfc_axi_kernel``, no source code) on
     an axisymmetric one; d2*-NULL and NRBC are pass12's alone.  Raises for
-    a deck with neither (it runs the flat ``gfc_kernel``).  The closures'
-    and the Euler gfc have one extended form each."""
+    a deck with neither (it runs the flat ``gfc_kernel``); "mw"
+    (``gfc_mw_kernel``) on a deck with moving-wall sources, whatever else it
+    has.  The closures' and the Euler gfc have one extended form each and
+    a moving-wall form each."""
     f = _ext_features(params)
+    if params.isSrcAdd:
+        return "mw"
     if f["src"]:
         return "all"
     if f["axi"]:
@@ -258,7 +291,10 @@ def radial_fluxes(scr: torch.Tensor) -> torch.Tensor:
 
 def n_scratch(params) -> int:
     """Planes of the gfc -> pass12 scratch: 31, and 9 for F on
-    axisymmetric decks."""
+    axisymmetric decks; with moving-wall sources the 6 planes from SCR_MW
+    (after the 9 F planes, which a flat deck leaves unwritten)."""
+    if params.isSrcAdd:
+        return N_SCRATCH_MW
     return N_SCRATCH_AXI if params.ft == fl.FT_AXISYMMETRIC else N_SCRATCH
 
 
@@ -539,7 +575,7 @@ class KernelConsts(ctypes.Structure):
         (f, ctypes.c_float) for f in ("delta_bl", "esc_l", "smag_cs2")] + [
         (f, ctypes.c_int) for f in ("axi", "src", "d2x", "d2y",
                                     "nrbc")] + [
-        ("nrbc_beta0", ctypes.c_float)]
+        ("nrbc_beta0", ctypes.c_float), ("wall_src", ctypes.c_int)]
 
 
 def closure_forms(p: SolverParams) -> tuple:
@@ -578,7 +614,7 @@ def kernel_consts(p: SolverParams, plan: TilePlan, heat: bool,
         smag_cs2=(0.1 * (p.dx * p.dy) ** 0.5) ** 2,
         axi=int(p.ft == fl.FT_AXISYMMETRIC), src=int(p.has_ext_src),
         d2x=int(p.has_d2x), d2y=int(p.has_d2y), nrbc=int(p.has_nrbc),
-        nrbc_beta0=p.nrbc_beta0)
+        nrbc_beta0=p.nrbc_beta0, wall_src=int(p.isSrcAdd))
 
 
 # the extended gfc forms' table coefficients (csrc/fused_step.cuh
@@ -703,7 +739,8 @@ class FusedStep:
     form ``gfc_form``), and pass12 runs its own there and on decks with
     d2*-NULL soft BCs or NRBC (``pass12_ext``, in the feature form
     ``pass12_form``); they read the source field the chunk sets
-    (``set_src``)."""
+    (``set_src``).  With moving-wall sources both run their moving-wall
+    forms."""
 
     def __init__(self, meta: GridMeta, params: SolverParams,
                  chem: ChemTables, plan: TilePlan, dispatch: str, ctx):
@@ -725,6 +762,7 @@ class FusedStep:
                          and not self.closure else None)
         self.pass12_form = pass12_form(p) if self.pass12_ext else None
         self.axi = p.ft == fl.FT_AXISYMMETRIC
+        self.mw = p.isSrcAdd
         self.idn = torch.stack([meta.idXl, meta.idXr, meta.idYu, meta.idYd])
         # the lam_t plane on Euler decks; y+ after a (zero) lam_t plane
         n_more = META_Y_PLUS + 1 - META_LAM_T if self.has_y_plus \
@@ -780,7 +818,8 @@ class FusedStep:
             return f"{GFC_FORMS[self.gfc_form]}<{body}>"
         kernel = ("gfc_euler" if self.euler else
                   "gfc_closure" if self.closure else "gfc")
-        return f"{kernel}{'_ext' if self.gfc_ext else ''}_kernel<{body}>"
+        form = ("_mw" if self.mw else "_ext" if self.gfc_ext else "")
+        return f"{kernel}{form}_kernel<{body}>"
 
     def pass12_name(self, body: str) -> str:
         """The name of pass12's kernel instantiation for ``body``."""
@@ -962,6 +1001,10 @@ class FusedStep:
             # F's own planes only, as the extended kernels (radial_fluxes)
             for e in F_OWN:
                 scr[SCR_F + e] = out.F[e]
+        if self.mw:
+            # the moving-wall sources (0 but at guarded no-slip wall nodes)
+            for k, e in enumerate(MW_EQ):
+                scr[SCR_MW + k] = out.SrcAdd[e]
         if self.has_heat:
             # what the heat stage reads (core/physics.py): lam + lam_t of
             # gfc's output, lam after chemistry and lam_t from the CP
@@ -999,12 +1042,15 @@ class FusedStep:
             S=scr[0:9], A=scr[9:18], B=scr[18:27])
         if self.axi:
             state = state.replace(F=radial_fluxes(scr))
-        if self.has_heat:
-            heat = (self.heat_source_plain(cout, scr, dt)
-                    if heat_src is None else heat_src)
-            state = state.replace(SrcAdd=torch.cat([
-                self.zero_src[:fl.i2d_RhoE], heat[None],
-                self.zero_src[fl.i2d_RhoE + 1:]]))
+        if self.has_heat or self.mw:
+            add = list(self.zero_src.unbind(0))
+            if self.has_heat:
+                add[fl.i2d_RhoE] = (self.heat_source_plain(cout, scr, dt)
+                                    if heat_src is None else heat_src)
+            if self.mw:
+                for k, e in enumerate(MW_EQ):
+                    add[e] = scr[SCR_MW + k]
+            state = state.replace(SrcAdd=torch.stack(add))
         S_c, beta_c, _, _, f = pass12(state, self.meta, p, self._aux(aux),
                                       return_fields=True, ctx=self.ctx)
         gate = f["gate"] & self.own

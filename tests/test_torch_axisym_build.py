@@ -103,7 +103,7 @@ def test_cli_sources_match_the_jax_cli(tmp_path):
                                      "--no-swap", "--devices", "1"])
     rc_t, out_t = run_cli(main, [str(deck), "--max-cycles", "2",
                                  "--outdir", str(tmp_path / "torch"),
-                                 "--no-pallas", *CPU])
+                                 "--no-pallas", "--no-swap", *CPU])
     assert rc_j == rc_t == 0
 
     def lines(out, outdir):

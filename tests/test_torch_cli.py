@@ -25,8 +25,9 @@
   the uninterrupted second cycle; ``--devices 2`` runs two X strips, and
   under torchrun's environment one strip a rank (two gloo ranks, spawned,
   meeting at a localhost port), the primary writing the files; ``--swap``
-  raises naming the swap file; the auto path selection prints its
-  reason.
+  (the default) writes ``<Project>.hf2d``, one 1248-byte node record a
+  grid node, and a second run in the same directory resumes from it
+  (tests/test_torch_swap.py); the auto path selection prints its reason.
 """
 
 import contextlib
@@ -102,7 +103,7 @@ def test_cli_matches_the_jax_cli(tmp_path, nmax, tol):
                                      "--no-swap", "--devices", "1"])
     rc_t, out_t = run_cli(main, [str(deck), "--max-cycles", "2",
                                  "--outdir", str(tmp_path / "torch"),
-                                 "--no-pallas", *CPU])
+                                 "--no-pallas", "--no-swap", *CPU])
     assert rc_j == rc_t == 0
     files = sorted(p.name for p in (tmp_path / "jax").iterdir())
     assert files == sorted(p.name for p in (tmp_path / "torch").iterdir())
@@ -257,10 +258,18 @@ def test_devices_runs_strips(tmp_path):
 
 
 def test_swap_raises_naming_the_swap_file(tmp_path):
+    """``--swap`` (the JAX CLI's default, now ported) writes the swap file
+    ``<Project>.hf2d`` of MaxX MaxY 1248-byte node records into --outdir
+    every outer cycle; ``--no-swap`` writes none."""
     deck = tmp_path / "Channel.dat"
     deck.write_text(deck_to_text(channel_deck(16, 16, nmax=5)))
-    with pytest.raises(NotImplementedError, match="Channel.hf2d"):
-        run_cli(main, [str(deck), "--swap", "--outdir", str(tmp_path), *CPU])
+    rc, out = run_cli(main, [str(deck), "--swap", "--max-cycles", "1",
+                             "--outdir", str(tmp_path / "on"), *CPU])
+    assert rc == 0 and "PreloadFlag" not in out
+    assert (tmp_path / "on" / "Channel.hf2d").stat().st_size == 16 * 16 * 1248
+    rc, _ = run_cli(main, [str(deck), "--no-swap", "--max-cycles", "1",
+                           "--outdir", str(tmp_path / "off"), *CPU])
+    assert rc == 0 and not (tmp_path / "off" / "Channel.hf2d").exists()
 
 
 RANK_TIMEOUT = 120

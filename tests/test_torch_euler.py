@@ -75,12 +75,15 @@ def test_check_supported_accepts_euler_decks(case):
 
 
 @pytest.mark.parametrize("change, words", [
-    # axisymmetric flow, NRBC and d2*-NULL soft BCs are ported on Euler
-    # decks too: accepted (words None); a non-uniform mesh is still refused
+    # axisymmetric flow, NRBC, d2*-NULL soft BCs, non-uniform meshes and
+    # moving-wall sources are ported on Euler decks too: accepted (words
+    # None); other chemistry codes are still refused
     ({"ft": fl.FT_AXISYMMETRIC}, None),
     ({"has_nrbc": True}, None),
     ({"has_d2y": True}, None),
-    ({"uniform_mesh": False}, "non-uniform meshes"),
+    ({"uniform_mesh": False}, None),
+    ({"isSrcAdd": True}, None),
+    ({"chemistry": 2}, "chemistry model 2"),
 ])
 def test_check_supported_still_refuses_the_rest(change, words):
     p = port_case(jinit.build_case(DECKS["channel"]())).params

@@ -13,8 +13,10 @@ wall_bottom=True, adiabatic=False, with_step=True)`` and
 Euler cylinders with conducting walls (``cylinders_deck(64, 48)``,
 isAdiabaticWall=0: every tile general, lam_t the chunk-constant plane), on
 the 64x256 step deck with the RNG k-eps variant (TurbExtModel=8: gfc in
-the closures' form, gfc_closure_kernel) and on the 64x256 step deck with
-FlowType=1 (gfc and pass12 in their extended forms, F in the scratch),
+the closures' form, gfc_closure_kernel), on the 64x256 step deck with
+FlowType=1 (gfc and pass12 in their extended forms, F in the scratch) and
+on the airfoil with conducting walls (``airfoil_deck(128, 128)``,
+isAdiabaticWall=0: a solid body inside the spec set),
 each as a single domain and as ``LocalComm(2, "cpu")`` X strips:
 
 * (a) gfc_plain, then heat_plain before pass12_plain and again after it,
@@ -46,7 +48,8 @@ import numpy as np
 import pytest
 import torch
 
-from openhyperflow2d_torch.examples import (combustor_deck, cylinders_deck,
+from openhyperflow2d_torch.examples import (airfoil_deck, combustor_deck,
+                                            cylinders_deck,
                                             reacting_rans_deck)
 from openhyperflow2d_torch.ops.fused_step import (DISPATCH_FORMS,
                                                   SCR_LAM_EFF, SCR_SRCADD_E,
@@ -66,6 +69,7 @@ DECKS = {
         64, 256, with_step=True, adiabatic=False)),
     "combustor_step_heat_axisym": lambda: _axisym(combustor_deck(
         64, 256, with_step=True, adiabatic=False)),
+    "airfoil_heat": lambda: _conducting(airfoil_deck(128, 128)),
 }
 
 

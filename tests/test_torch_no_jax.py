@@ -30,6 +30,7 @@ import openhyperflow2d_torch.bench.microbench
 import openhyperflow2d_torch.parallel.multihost
 import openhyperflow2d_torch.parallel.shard_step
 import openhyperflow2d_torch.io_out.host
+import openhyperflow2d_torch.io_out.swapfile
 import openhyperflow2d_torch.io_out.tecplot
 import openhyperflow2d_torch.postproc.outcfd
 import openhyperflow2d_torch.solver.checkpoint

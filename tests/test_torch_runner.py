@@ -56,17 +56,17 @@ SUPPORTED = tstate.SolverParams(MaxX=8, MaxY=8, dx=1e-3, dy=1e-3,
 
 @pytest.mark.parametrize("change, words", [
     # Euler decks, every closure, the k-eps variants, axisymmetric flow,
-    # d2*-NULL soft BCs, NRBC and external sources are ported: accepted
-    # (words None)
+    # d2*-NULL soft BCs, NRBC, external sources, non-uniform meshes and
+    # moving-wall sources are ported: accepted (words None)
     ({"sm": fl.SM_EULER}, None),
     ({"models": ("keps", "sa")}, None),
     ({"tem": fl.TEM_k_eps_Chien}, None),
     ({"ft": fl.FT_AXISYMMETRIC}, None),
-    ({"uniform_mesh": False}, "non-uniform meshes"),
+    ({"uniform_mesh": False}, None),
     ({"has_d2y": True}, None),
     ({"has_nrbc": True}, None),
     ({"has_ext_src": True}, None),
-    ({"isSrcAdd": True}, "moving-wall sources"),
+    ({"isSrcAdd": True}, None),
     ({"chemistry": 2}, "chemistry model 2"),
 ])
 def test_check_supported_names_what_is_missing(change, words):
