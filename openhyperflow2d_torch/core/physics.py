@@ -164,9 +164,10 @@ def fill_node(state: SolverState, meta: GridMeta, params: SolverParams,
         U = wsel(wall_law, div_rho(s[fl.i2d_RhoU]), U)
         V = wsel(wall_law, div_rho(s[fl.i2d_RhoV]), V)
         # WALL_NO_SLIP: optional moving-wall sources, gas moves with wall
-        U_pre = wsel(wall_ns, div_rho(s[fl.i2d_RhoU]), U)
-        V_pre = wsel(wall_ns, div_rho(s[fl.i2d_RhoV]), V)
         if p.isSrcAdd:
+            # the velocity before the no-slip overwrite below
+            U_pre = wsel(wall_ns, div_rho(s[fl.i2d_RhoU]), U)
+            V_pre = wsel(wall_ns, div_rho(s[fl.i2d_RhoV]), V)
             # per-node dx/dy on non-uniform meshes (hyper_flow_node.hpp:
             # 463-464 reads the node's own spacing)
             ndx, ndy = node_dx_dy(meta, p)

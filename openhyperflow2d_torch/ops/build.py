@@ -8,8 +8,10 @@ so an edited source rebuilds and an unchanged one is reused.  A failed build
 raises with nvcc's output; nothing falls back.
 
 ``load_library(csrc)`` builds and loads the same entries from another
-checkout's sources, and ``kernels_from(lib)`` makes every wrapper launch
-them for the length of a block: an A/B of two builds in one process.
+checkout's sources (``load_library(flags=...)``: from these sources with
+more nvcc flags, as ``-fmad=false``), and ``kernels_from(lib)`` makes every
+wrapper launch them for the length of a block: an A/B of two builds in one
+process.
 """
 
 from __future__ import annotations
@@ -83,19 +85,20 @@ def nvcc_path() -> str:
                        "built")
 
 
-def _source_hash(sources) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _source_hash(sources, flags=()) -> str:
+    h = hashlib.sha256(" ".join([*NVCC_FLAGS, *flags]).encode())
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build(csrc: Path = CSRC) -> tuple[Path, float, str]:
-    """Compile the kernels of ``csrc`` if needed; returns (library path,
-    seconds spent compiling, ptxas log)."""
+def build(csrc: Path = CSRC, flags=()) -> tuple[Path, float, str]:
+    """Compile the kernels of ``csrc`` (with ``flags`` after NVCC_FLAGS)
+    if needed; returns (library path, seconds spent compiling, ptxas
+    log)."""
     sources = sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
-    out_dir = BUILD_ROOT / _source_hash(sources)
+    out_dir = BUILD_ROOT / _source_hash(sources, flags)
     lib_path = out_dir / LIB_NAME
     log_path = out_dir / "ptxas.log"
     if lib_path.exists():
@@ -112,8 +115,8 @@ def build(csrc: Path = CSRC) -> tuple[Path, float, str]:
         if src.suffix != ".cu":
             continue
         obj = obj_dir / f"{src.stem}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(csrc), "-c", "-o", str(obj),
-               str(src)]
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-I", str(csrc), "-c", "-o",
+               str(obj), str(src)]
         procs.append((cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -149,9 +152,10 @@ def build(csrc: Path = CSRC) -> tuple[Path, float, str]:
 _LOADED: KernelLib | None = None
 
 
-def load_library(csrc: Path = CSRC) -> KernelLib:
-    """Build (if needed) and load the kernel library of ``csrc``."""
-    path, secs, log = build(Path(csrc))
+def load_library(csrc: Path = CSRC, flags=()) -> KernelLib:
+    """Build (if needed) and load the kernel library of ``csrc``, with
+    ``flags`` after NVCC_FLAGS."""
+    path, secs, log = build(Path(csrc), tuple(flags))
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         # an earlier tree (load_library of an A/B) may lack later entries;

@@ -13,8 +13,9 @@
 //   pass12_ext_kernel<BODY>       pass12 of pass12_kernel on a deck with
 //                                 sources, d2*-NULL soft BCs or NRBC
 //
-// (A deck with moving-wall sources runs fused_step_mw.cu's forms of these,
-// through the same entries.)
+// (A deck with moving-wall sources runs fused_step_mw.cu's forms of these
+// on its general and dual launches, through the same entries, and the
+// all-features forms' spec bodies on its spec tiles.)
 //
 // They replace the same TPU kernel as the flat forms
 // (openhyperflow2d_tpu/ops/pallas_step.py _machinery.make_fused, general
@@ -154,18 +155,21 @@ pass12_ext_kernel(HF2D_PASS12_EXT_PARAMS) {
 // The feature form of pass12 a deck's flags call for (ops/fused_step.py
 // pass12_form mirrors it): the axisymmetric-only form where axisymmetry is
 // the one feature, the all-features form where the deck has sources, d2
-// or NRBC; -1 (no form: such a deck runs pass12_kernel) without any.
+// or NRBC, and on a moving-wall deck's spec tiles (its other launches run
+// fused_step_mw.cu's form); -1 (no form: such a deck runs pass12_kernel)
+// without any.
 static int pass12_form(const ExtConsts& c) {
-    if (c.src || c.d2x || c.d2y || c.nrbc) return XF_ALL;
+    if (c.src || c.d2x || c.d2y || c.nrbc || c.wall_src) return XF_ALL;
     return c.axi ? XF_AXI : -1;
 }
 
 // The same of gfc_ext_kernel's feature forms (ops/fused_step.py gfc_form):
-// the all-features form with sources, else the axisymmetric-only form on
-// an axisymmetric deck (d2 and NRBC are pass12's alone); -1 without
-// either (such a deck runs gfc_kernel).
+// the all-features form with sources or on a moving-wall deck's spec
+// tiles, else the axisymmetric-only form on an axisymmetric deck (d2 and
+// NRBC are pass12's alone); -1 without either (such a deck runs
+// gfc_kernel).
 static int gfc_form(const ExtConsts& c) {
-    if (c.src) return XF_ALL;
+    if (c.src || c.wall_src) return XF_ALL;
     return c.axi ? XF_AXI : -1;
 }
 
@@ -205,7 +209,9 @@ div_jp1_check_kernel(const float* __restrict__ as, int n, int jp1_lo,
 // field `src` (9 planes of the grid; read only where ExtConsts::src) last
 // but the stream; `consts` points to an ExtConsts.  No staged body.  A deck
 // with moving-wall sources (ExtConsts::wall_src) runs the moving-wall forms
-// of fused_step_mw.cu, whatever its other features.
+// of fused_step_mw.cu on its general and dual launches, whatever its other
+// features, and the all-features spec body on its spec tiles (pass12_form,
+// gfc_form).
 // ---------------------------------------------------------------------------
 extern "C" {
 
@@ -229,7 +235,7 @@ int hf2d_gfc_ext(int body, const void* consts, const void* cin, void* cout,
                  const void* src, void* stream) {
     if (n_tiles == 0) return 0;
     const ExtConsts c = *static_cast<const ExtConsts*>(consts);
-    if (c.wall_src)
+    if (c.wall_src && body != BODY_SPEC)
         return hf2d_gfc_mw(body, consts, cin, cout, scr, idn, mf, ctxw,
                            chemf, chemi, dt, aux, tiles, n_tiles, flags,
                            part_i, src, stream);
@@ -297,7 +303,7 @@ int hf2d_pass12_ext(int body, const void* consts, const void* cin,
                     void* part_f, const void* src, void* stream) {
     if (n_tiles == 0) return 0;
     const ExtConsts c = *static_cast<const ExtConsts*>(consts);
-    if (c.wall_src)
+    if (c.wall_src && body != BODY_SPEC)
         return hf2d_pass12_mw(body, consts, cin, cout, scr, idn, ctxw, dt,
                               aux, tiles, n_tiles, flags, part_f, src,
                               stream);

@@ -8,6 +8,11 @@
 //                                moving-wall sources
 //   pass12_mw_kernel<BODY>       pass12 of pass12_ext_kernel on such a deck
 //
+// BODY is the general or the dual body: no spec tile holds a wall node,
+// and in a spec body the moving-wall code compiles away, so a moving-wall
+// deck's spec tiles run the all-features forms' spec bodies
+// (fused_step_ext.cu, whose entries route them there).
+//
 // They replace the same TPU kernel as the other forms
 // (openhyperflow2d_tpu/ops/pallas_step.py _machinery.make_fused, general
 // body :456-722, spec body :719-720, dual body :702-718), whose body runs
@@ -22,8 +27,7 @@
 //
 // into six scratch planes of their own (SCR_MW..), at the wall nodes
 // alone; pass12 adds them to pass 1 at the node, beside the folded heat
-// source of the energy equation.  The terms are node-local: no new halo,
-// and no spec tile holds a wall node, so the spec bodies carry none of it.
+// source of the energy equation.  The terms are node-local: no new halo.
 // The kernel path runs uniform meshes only (the node's dx and dy are the
 // deck's).  Every other feature is the all-features form's, tested at run
 // time (axisymmetry, sources, d2*-NULL, NRBC).  A translation unit of its
@@ -84,8 +88,9 @@ pass12_mw_kernel(const ExtConsts c, const float* __restrict__ cin,
 }
 
 // ---------------------------------------------------------------------------
-// Entries: hf2d_gfc_ext / hf2d_pass12_ext (fused_step_ext.cu) hand a deck
-// with ExtConsts::wall_src to these, with their own arguments.
+// Entries: hf2d_gfc_ext / hf2d_pass12_ext (fused_step_ext.cu) hand the
+// general and dual launches of a deck with ExtConsts::wall_src to these,
+// with their own arguments.
 // ---------------------------------------------------------------------------
 extern "C" {
 
@@ -112,9 +117,6 @@ int hf2d_gfc_mw(int body, const void* consts, const void* cin, void* cout,
     else if (c.closure && body == BODY_GENERAL)
         gfc_closure_mw_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
             HF2D_GFC_MW_ARGS);
-    else if (c.closure && body == BODY_SPEC)
-        gfc_closure_mw_kernel<BODY_SPEC><<<n_tiles, block, 0, s>>>(
-            HF2D_GFC_MW_ARGS);
     else if (c.closure && body == BODY_DUAL)
         gfc_closure_mw_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(
             HF2D_GFC_MW_ARGS);
@@ -130,9 +132,6 @@ int hf2d_gfc_mw(int body, const void* consts, const void* cin, void* cout,
         return static_cast<int>(cudaErrorInvalidValue);
     else if (body == BODY_GENERAL)
         gfc_mw_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
-            HF2D_GFC_MW_ARGS);
-    else if (body == BODY_SPEC)
-        gfc_mw_kernel<BODY_SPEC><<<n_tiles, block, 0, s>>>(
             HF2D_GFC_MW_ARGS);
     else if (body == BODY_DUAL)
         gfc_mw_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(
@@ -163,9 +162,6 @@ int hf2d_pass12_mw(int body, const void* consts, const void* cin,
     else if (body == BODY_GENERAL)
         pass12_mw_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
             HF2D_PASS12_MW_ARGS);
-    else if (body == BODY_SPEC)
-        pass12_mw_kernel<BODY_SPEC><<<n_tiles, block, 0, s>>>(
-            HF2D_PASS12_MW_ARGS);
     else if (body == BODY_DUAL)
         pass12_mw_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(
             HF2D_PASS12_MW_ARGS);
@@ -176,29 +172,23 @@ int hf2d_pass12_mw(int body, const void* consts, const void* cin,
 }
 
 // The kernel of stage 11 (gfc_mw), 12 (gfc_closure_mw), 13 (gfc_euler_mw)
-// or 14 (pass12_mw) and body (BODY_GENERAL, BODY_SPEC or BODY_DUAL; the
-// Euler form has no spec body), for fused_step.cu's hf2d_kernel_info; null
-// for any other.
+// or 14 (pass12_mw) and body (BODY_GENERAL or BODY_DUAL), for
+// fused_step.cu's hf2d_kernel_info; null for any other.
 const void* hf2d_mw_kernel_fn(int stage, int body) {
-    if (body != BODY_GENERAL && body != BODY_SPEC && body != BODY_DUAL)
-        return nullptr;
-    const bool spec = body == BODY_SPEC, dual = body == BODY_DUAL;
+    if (body != BODY_GENERAL && body != BODY_DUAL) return nullptr;
+    const bool dual = body == BODY_DUAL;
     switch (stage) {
         case 11:
-            return spec ? (const void*)gfc_mw_kernel<BODY_SPEC>
-                 : dual ? (const void*)gfc_mw_kernel<BODY_DUAL>
+            return dual ? (const void*)gfc_mw_kernel<BODY_DUAL>
                         : (const void*)gfc_mw_kernel<BODY_GENERAL>;
         case 12:
-            return spec ? (const void*)gfc_closure_mw_kernel<BODY_SPEC>
-                 : dual ? (const void*)gfc_closure_mw_kernel<BODY_DUAL>
+            return dual ? (const void*)gfc_closure_mw_kernel<BODY_DUAL>
                         : (const void*)gfc_closure_mw_kernel<BODY_GENERAL>;
         case 13:
-            return spec ? nullptr
-                 : dual ? (const void*)gfc_euler_mw_kernel<BODY_DUAL>
+            return dual ? (const void*)gfc_euler_mw_kernel<BODY_DUAL>
                         : (const void*)gfc_euler_mw_kernel<BODY_GENERAL>;
         case 14:
-            return spec ? (const void*)pass12_mw_kernel<BODY_SPEC>
-                 : dual ? (const void*)pass12_mw_kernel<BODY_DUAL>
+            return dual ? (const void*)pass12_mw_kernel<BODY_DUAL>
                         : (const void*)pass12_mw_kernel<BODY_GENERAL>;
         default:
             return nullptr;

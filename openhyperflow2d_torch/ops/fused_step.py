@@ -52,9 +52,11 @@ chunk-constant meta plane META_Y_PLUS where the closure does (van Driest,
 Chien; JAX stages it at pallas_step.py:407-410).  Their spec tiles exist
 only where the deck has k-eps nodes (``spec_supported``).  A deck with
 moving-wall sources (``isSrcAdd``) runs the moving-wall forms of every
-family (csrc/fused_step_mw.cu): gfc writes the SrcAdd of the
-equations MW_EQ at its no-slip wall nodes into scratch planes SCR_MW..,
-pass12 adds them there, beside the folded heat source of rhoE.  The
+family (csrc/fused_step_mw.cu) on its general and dual launches: gfc
+writes the SrcAdd of the equations MW_EQ at its no-slip wall nodes into
+scratch planes SCR_MW.., pass12 adds them there, beside the folded heat
+source of rhoE.  No spec tile holds a wall node, so its spec launches
+run the all-features forms' spec bodies (``*_ext_kernel<spec>``).  The
 kernel path runs uniform meshes only, as JAX's Pallas path does.
 
 The loop reads nothing back to the host and copies nothing to the device:
@@ -157,13 +159,14 @@ EXT_KERNEL_NAMES = tuple(
     f"{PASS12_FORMS[form]}<{body}>" for form in ("axi", "all")
     for body in ("spec", "general", "dual"))
 # the moving-wall forms (csrc/fused_step_mw.cu): every deck with isSrcAdd,
-# whatever its other features, runs these
+# whatever its other features, runs these on its general and dual launches
+# (its spec launches: the all-features forms' spec bodies)
 MW_KERNEL_NAMES = tuple(
     f"{kernel}<{body}>" for kernel in ("gfc_mw_kernel",
-                                       "gfc_closure_mw_kernel")
-    for body in ("spec", "general", "dual")) + (
-    "gfc_euler_mw_kernel<general>", "gfc_euler_mw_kernel<dual>") + tuple(
-    f"pass12_mw_kernel<{body}>" for body in ("spec", "general", "dual"))
+                                       "gfc_closure_mw_kernel",
+                                       "gfc_euler_mw_kernel",
+                                       "pass12_mw_kernel")
+    for body in ("general", "dual"))
 PATH_KERNEL_NAMES = (NS_KERNEL_NAMES + EULER_KERNEL_NAMES
                      + CLOSURE_KERNEL_NAMES + EXT_KERNEL_NAMES
                      + MW_KERNEL_NAMES)
@@ -246,9 +249,9 @@ def pass12_form(params) -> str:
     feature's code) where axisymmetry is the deck's one extended feature,
     "all" (``pass12_ext_kernel``, each feature tested at run time) where it
     has sources, d2*-NULL soft BCs or NRBC, "mw" (``pass12_mw_kernel``,
-    the all-features form and the moving-wall sources) where it has
-    moving-wall sources.  Raises for a deck with none (it runs the flat
-    ``pass12_kernel``)."""
+    the all-features form and the moving-wall sources; its spec launches
+    run "all", FusedStep.pass12_name) where it has moving-wall sources.
+    Raises for a deck with none (it runs the flat ``pass12_kernel``)."""
     f = _ext_features(params)
     if params.isSrcAdd:
         return "mw"
@@ -266,9 +269,10 @@ def gfc_form(params) -> str:
     deck with sources, else "axi" (``gfc_axi_kernel``, no source code) on
     an axisymmetric one; d2*-NULL and NRBC are pass12's alone.  Raises for
     a deck with neither (it runs the flat ``gfc_kernel``); "mw"
-    (``gfc_mw_kernel``) on a deck with moving-wall sources, whatever else it
-    has.  The closures' and the Euler gfc have one extended form each and
-    a moving-wall form each."""
+    (``gfc_mw_kernel``; its spec launches run "all", FusedStep.gfc_name)
+    on a deck with moving-wall sources, whatever else it has.  The
+    closures' and the Euler gfc have one extended form each and a
+    moving-wall form each."""
     f = _ext_features(params)
     if params.isSrcAdd:
         return "mw"
@@ -813,19 +817,27 @@ class FusedStep:
             self.src = src.to(self.zero_src.dtype).contiguous()
 
     def gfc_name(self, body: str) -> str:
-        """The name of gfc's kernel instantiation for ``body``."""
+        """The name of gfc's kernel instantiation for ``body`` (the
+        moving-wall forms have no spec body: a moving-wall deck's spec
+        launch runs the all-features form's)."""
+        mw = self.mw and body != "spec"
         if self.gfc_form is not None:
-            return f"{GFC_FORMS[self.gfc_form]}<{body}>"
+            form = ("all" if self.gfc_form == "mw" and body == "spec"
+                    else self.gfc_form)
+            return f"{GFC_FORMS[form]}<{body}>"
         kernel = ("gfc_euler" if self.euler else
                   "gfc_closure" if self.closure else "gfc")
-        form = ("_mw" if self.mw else "_ext" if self.gfc_ext else "")
+        form = ("_mw" if mw else "_ext" if self.gfc_ext else "")
         return f"{kernel}{form}_kernel<{body}>"
 
     def pass12_name(self, body: str) -> str:
-        """The name of pass12's kernel instantiation for ``body``."""
-        kernel = (PASS12_FORMS[self.pass12_form] if self.pass12_ext
-                  else "pass12_kernel")
-        return f"{kernel}<{body}>"
+        """The name of pass12's kernel instantiation for ``body`` (as
+        gfc_name's on a moving-wall deck's spec launch)."""
+        if not self.pass12_ext:
+            return f"pass12_kernel<{body}>"
+        form = ("all" if self.pass12_form == "mw" and body == "spec"
+                else self.pass12_form)
+        return f"{PASS12_FORMS[form]}<{body}>"
 
     def iteration_launches(self) -> list:
         """The kernels one iteration launches, in order (no launch needs

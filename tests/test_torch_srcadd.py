@@ -22,8 +22,10 @@ and an Euler channel with an NT_WNS_2D wall.  Float64, JAX on the CPU.
 * the plain strips bit for bit the single domain;
 * form choice: every isSrcAdd deck runs the moving-wall forms
   (gfc_mw_kernel, gfc_closure_mw_kernel or
-  gfc_euler_mw_kernel, and pass12_mw_kernel) whatever its other features,
-  and the decks of the timed 2048^2 cells run the forms they ran before.
+  gfc_euler_mw_kernel, and pass12_mw_kernel) on its general and dual
+  launches whatever its other features, and the all-features forms' spec
+  bodies on its spec tiles (which hold no wall node); the decks of the
+  timed 2048^2 cells run the forms they ran before.
 """
 
 import dataclasses
@@ -36,13 +38,32 @@ from torch_parity import (KERNEL_FIELDS, beta_err, jax_wall_channel, np_copy,
 
 from openhyperflow2d_torch import examples as ex
 from openhyperflow2d_torch.core import flags as fl
-from openhyperflow2d_torch.ops.fused_step import (MW_EQ, MW_KERNEL_NAMES,
+from openhyperflow2d_torch.ops.fused_step import (EXT_KERNEL_NAMES, MW_EQ,
+                                                  MW_KERNEL_NAMES,
                                                   N_SCRATCH_MW, n_scratch)
 from openhyperflow2d_torch.parallel.comm import LocalComm
 from openhyperflow2d_torch.solver.init import build_case
 from openhyperflow2d_torch.solver.runner import Solver
 
 FREE_WALL = "CT_NODE_IS_SET_2D, CT_WALL_NO_SLIP_2D"
+
+
+def assert_mw_forms(names, gfc_kernel=None):
+    """Every general and dual launch of ``names`` a moving-wall form
+    (``gfc_kernel`` or pass12_mw_kernel, where given), every spec launch
+    the all-features form's spec body."""
+    assert names
+    for n in names:
+        kernel, body = n[:-1].split("<")
+        if body == "spec":
+            assert n in EXT_KERNEL_NAMES and kernel.endswith("_ext_kernel"), n
+            if gfc_kernel is not None:
+                assert kernel in (gfc_kernel.replace("_mw_", "_ext_"),
+                                  "pass12_ext_kernel"), n
+        else:
+            assert n in MW_KERNEL_NAMES, n
+            if gfc_kernel is not None:
+                assert kernel in (gfc_kernel, "pass12_mw_kernel"), n
 
 
 def jax_deck(name):
@@ -146,7 +167,7 @@ def test_kernel_plain_matches_pallas(name, K):
     jc, want, wd = pallas_cycle(name, K)
     ts = Solver(port_case(jc), device="cpu", use_kernels=True, fuse_iters=K)
     launches = ts.fused.iteration_launches()
-    assert launches and all(n in MW_KERNEL_NAMES for n in launches), launches
+    assert_mw_forms(launches)
     gd, _ = ts.run_cycle()
     got = ts.host_state()
     errs = {f: scaled_err(want, got, f) for f in KERNEL_FIELDS}
@@ -242,8 +263,9 @@ def test_forms_with_and_without_moving_walls(kind):
         case.params, isSrcAdd=True))
     names = Solver(mw, device="cpu", use_kernels=True).fused \
         .iteration_launches()
-    want = (WITH_MW.get(kind, "gfc_mw_kernel"), "pass12_mw_kernel")
-    assert all(n.startswith((f"{want[0]}<", f"{want[1]}<"))
-               for n in names), names
-    assert all(n in MW_KERNEL_NAMES for n in names)
+    gfc_mw = WITH_MW.get(kind, "gfc_mw_kernel")
+    assert_mw_forms(names, gfc_mw)
+    dual = Solver(mw, device="cpu", use_kernels=True, dispatch="dual") \
+        .fused.iteration_launches()
+    assert dual == [f"{gfc_mw}<dual>", "pass12_mw_kernel<dual>"], dual
     assert n_scratch(mw.params) == N_SCRATCH_MW

@@ -159,16 +159,29 @@ def test_no_preload_without_swap_file(tmp_path):
     assert not case.preloaded          # fresh start; bounds force-reset
 
 
-def test_preload_rejects_wrong_size(tmp_path):
+def test_preload_rejects_wrong_size(tmp_path, capsys):
+    """A swap file of another size is not preloaded, and the run says so:
+    the path, its size, the size expected and that a write replaces it."""
     deck = channel_deck(nx=32, ny=24)
     deck.data["ProjectName"] = "bad"
-    (tmp_path / "bad.hf2d").write_bytes(b"\0" * 1000)
+    path = tmp_path / "bad.hf2d"
+    path.write_bytes(b"\0" * 1000)
     case = build_case(deck, use_swap=True, swap_dir=str(tmp_path))
     assert not case.preloaded
+    said = capsys.readouterr().out
+    assert (f"Swap file {str(path)!r} holds 1000 bytes, not the "
+            f"{32 * 24 * NODE_SIZE} of a 32x24 grid: not preloaded "
+            f"(PreloadFlag=0); a swap write overwrites it") in said, said
     # a file of another grid's size is not half-loaded either
-    (tmp_path / "bad.hf2d").write_bytes(b"\0" * (16 * 24 * NODE_SIZE))
+    path.write_bytes(b"\0" * (16 * 24 * NODE_SIZE))
     assert not build_case(deck, use_swap=True,
                           swap_dir=str(tmp_path)).preloaded
+    assert f"holds {16 * 24 * NODE_SIZE} bytes" in capsys.readouterr().out
+    # no file: nothing to say
+    path.unlink()
+    assert not build_case(deck, use_swap=True,
+                          swap_dir=str(tmp_path)).preloaded
+    assert "Swap file" not in capsys.readouterr().out
 
 
 def test_cli_auto_resume(tmp_path):
