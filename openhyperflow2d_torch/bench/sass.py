@@ -13,6 +13,15 @@ the division's slow path, its local loads and stores).
 builds the library if needed (nvcc; of TREE's ops/csrc with ``--tree``)
 and prints one line a kernel, those whose name contains one of the NAMEs
 if any are given.  It exits non-zero where cuobjdump is not beside nvcc.
+
+    python -m openhyperflow2d_torch.bench.sass --spills [NAME ...]
+
+reads where the solver's kernels spill: it builds the library with
+``-lineinfo`` (line tables only: ptxas gives the same registers and
+spills), disassembles it with nvdisasm and prints one line a local-memory
+slot of each kernel: each store with the instruction that last wrote the
+stored register and its source line, each load with the first
+instruction that reads the loaded register and its line (spills).
 """
 
 from __future__ import annotations
@@ -113,19 +122,125 @@ def report(listing: str) -> list:
     return lines
 
 
+# nvdisasm -g: a function's label, an instruction's source line
+_NVD_FUNC = re.compile(r"^\.text\.(_Z\w+):")
+_NVD_LINE = re.compile(r'//## File "([^"]+)", line (\d+)')
+# a local store or load through the stack pointer: STL [R1+off], Rs and
+# LDL Rd, [R1+off] (any width; the first register of a pair)
+_STL = re.compile(r"^STL(?:\.\w+)*\s+\[R1(?:\+(0x[0-9a-f]+))?\],\s*(R\d+)")
+_LDL = re.compile(r"^LDL(?:\.\w+)*\s+(R\d+),\s*\[R1(?:\+(0x[0-9a-f]+))?\]")
+# opcodes whose first operand is not a register they write
+_NO_DEST = ("ST", "BRA", "BSSY", "BSYNC", "EXIT", "RED", "CALL", "RET",
+            "BAR", "WARPSYNC", "NOP")
+
+
+def line_functions(listing: str) -> dict:
+    """{"name<body>": [(address, instruction, "file:line")]} of the
+    solver's kernels in an ``nvdisasm -g`` listing (a predicate guard kept
+    in the instruction)."""
+    funcs, cur, where = {}, None, "?"
+    for line in listing.splitlines():
+        m = _NVD_FUNC.match(line)
+        if m:
+            f = _FUSED.search(m.group(1))
+            cur = f"{f.group(1)}<{_BODY[f.group(2)]}>" if f else None
+            if cur:
+                funcs[cur] = []
+            continue
+        m = _NVD_LINE.search(line)
+        if m:
+            where = f"{Path(m.group(1)).name}:{m.group(2)}"
+            continue
+        m = _INST.match(line)
+        if m and cur:
+            funcs[cur].append((int(m.group(1), 16), m.group(2), where))
+    return funcs
+
+
+def _unguarded(text: str) -> str:
+    return re.sub(r"^@!?U?P\w+\s+", "", text)
+
+
+def _operands(text: str) -> list:
+    return re.split(r"[\s,\[\]]+", _unguarded(text).strip())
+
+
+def _writes(text: str, reg: str) -> bool:
+    ops = _operands(text)
+    return (len(ops) > 1 and not ops[0].startswith(_NO_DEST)
+            and ops[1] == reg)
+
+
+def spills(insts) -> list:
+    """One line a local-memory slot of a function (line_functions), by
+    offset: each store, with the last instruction before it that wrote the
+    stored register (the spilled value's origin), and each load, with the
+    first instruction after it that reads the loaded register (its use);
+    "?" where the listing holds none."""
+    slots = {}
+    for k, (addr, text, where) in enumerate(insts):
+        body = _unguarded(text)
+        m = _STL.match(body)
+        if m:
+            off, reg = int(m.group(1) or "0", 16), m.group(2)
+            src = next((f"{t.split()[0]} at {a:#06x} ({w})"
+                        for a, t, w in reversed(insts[:k])
+                        if _writes(t, reg)), "?")
+            slots.setdefault(off, []).append(
+                f"stored at {addr:#06x} ({where}) from {src}")
+            continue
+        m = _LDL.match(body)
+        if m:
+            reg, off = m.group(1), int(m.group(2) or "0", 16)
+            use = next((f"{_unguarded(t).split()[0]} at {a:#06x} ({w})"
+                        for a, t, w in insts[k + 1:]
+                        if reg in _operands(t)[1:]), "?")
+            slots.setdefault(off, []).append(
+                f"loaded at {addr:#06x} ({where}), read by {use}")
+    return [f"local +{off:#x}: " + "; ".join(v)
+            for off, v in sorted(slots.items())]
+
+
+def spill_report(lib: Path, nvdisasm: Path, cuobjdump: Path) -> dict:
+    """line_functions of every cubin of the library ``lib``."""
+    import tempfile
+    funcs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        subprocess.run([str(cuobjdump), "-xelf", "all", str(lib)], cwd=tmp,
+                       capture_output=True, check=True)
+        for cubin in sorted(Path(tmp).glob("*.cubin")):
+            funcs.update(line_functions(subprocess.run(
+                [str(nvdisasm), "-g", "-c", str(cubin)], capture_output=True,
+                text=True, check=True).stdout))
+    return funcs
+
+
 def main() -> int:
     from ..ops.build import CSRC, load_library, nvcc_path
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", help="report TREE's ops/csrc build instead")
+    ap.add_argument("--spills", action="store_true",
+                    help="where each kernel spills (a -lineinfo build)")
     ap.add_argument("names", nargs="*",
                     help="only the kernels whose name holds one of these")
     args = ap.parse_args()
-    cuobjdump = Path(nvcc_path()).parent / "cuobjdump"
-    if not cuobjdump.exists():
-        print(f"sass: {cuobjdump} not found", file=sys.stderr)
-        return 2
+    tools = Path(nvcc_path()).parent
+    cuobjdump = tools / "cuobjdump"
+    for tool in (cuobjdump, tools / "nvdisasm") if args.spills else (
+            cuobjdump,):
+        if not tool.exists():
+            print(f"sass: {tool} not found", file=sys.stderr)
+            return 2
     csrc = Path(args.tree) / "openhyperflow2d_torch/ops/csrc" \
         if args.tree else CSRC
+    if args.spills:
+        lib = load_library(csrc, flags=("-lineinfo",)).path
+        for name, insts in sorted(spill_report(lib, tools / "nvdisasm",
+                                               cuobjdump).items()):
+            if not args.names or any(n in name for n in args.names):
+                for line in spills(insts) or ["no local memory"]:
+                    print(f"{name}: {line}")
+        return 0
     listing = subprocess.run([str(cuobjdump), "-sass",
                               str(load_library(csrc).path)],
                              capture_output=True, text=True,

@@ -4,9 +4,6 @@
 //                        Zeldovich chemistry, one thread per node
 //   gfc_euler_kernel     the same stage on Euler decks (ProblemType=0):
 //     <BODY>             the general body's Euler form on every tile
-//   gfc_closure_kernel   the same stage on NS decks whose turbulence
-//     <BODY>             closure is not standard k-eps (the Prandtl
-//                        family, the k-eps variants, SA, Smagorinsky)
 //   pass12_kernel<BODY>  pass 1 (blending update) + pass 2 (residual,
 //                        blending factor, commit), one thread per node;
 //                        on decks with non-adiabatic walls the general
@@ -125,17 +122,13 @@
 // (core/step.pass12 has no SM_NS branch), so pass12_kernel<general> (and
 // <dual>) run Euler decks as they are.
 //
-// The other turbulence closures (ops/fused_step.py is_closure) run gfc as
-// gfc_closure_kernel: gfc_node's CLOSURE flag at compile time swaps the
-// standard k-eps code for `closures` below, and the kernel alone takes
-// ClosureConsts.  Its bytes a node are the standard bodies' (244 spec,
-// 300 general) and the y+ plane's 4 where the closure reads y+; SA,
-// Smagorinsky and the Prandtl family have no spec tiles (spec_supported).
-// At 80 registers its general body spills 56 bytes a thread; with room
-// for 96 registers at 2 CTAs an SM it ran 1.15-1.46x slower on an H100
-// (PERF.md), so it keeps the 3-CTA budget and the spill.
-// pass12 runs these decks as it runs the standard ones: the closures
-// change only what gfc writes.
+// The other turbulence closures (ops/fused_step.py is_closure) run gfc in
+// the closures' forms of fused_step_closure.cu (gfc_node's CLOSURE flag
+// at compile time swaps the standard k-eps code for `closures`, one form
+// a closure family), which hf2d_gfc's closure branch launches
+// (hf2d_gfc_closure); they alone take ClosureConsts.  pass12 runs these
+// decks as it runs the standard ones: the closures change only what gfc
+// writes.
 //
 // Axisymmetric flow, external sources, d2*-NULL soft BCs and NRBC run the
 // extended forms of these kernels (fused_step_ext.cu, a translation unit
@@ -188,17 +181,6 @@ template <int BODY>
 __global__ void __launch_bounds__(CTA_THREADS)
 gfc_euler_kernel(HF2D_GFC_PARAMS(Consts)) {
     gfc_tile<BODY, true, false>(HF2D_GFC_FORWARD);
-}
-
-// The gfc of the NS decks whose closure is not standard k-eps
-// (BODY_GENERAL, BODY_SPEC or BODY_DUAL): every body in the closures' form
-// (the spec body only on decks with k-eps nodes, whose generic interior
-// runs the k-eps variant).  A kernel of its own, so the standard k-eps
-// kernels keep their symbols, code and budgets.
-template <int BODY>
-__global__ void __launch_bounds__(CTA_THREADS)
-gfc_closure_kernel(HF2D_GFC_PARAMS(ClosureConsts)) {
-    gfc_tile<BODY, false, true>(HF2D_GFC_FORWARD);
 }
 #undef HF2D_GFC_PARAMS
 #undef HF2D_GFC_FORWARD
@@ -435,6 +417,13 @@ static const WindowKernel PASS12_WINDOW{
 // ---------------------------------------------------------------------------
 extern "C" {
 
+int hf2d_gfc_closure(int body, const void* consts, const void* cin,
+                     void* cout, void* scr, const void* idn, const void* mf,
+                     const void* ctxw, const void* chemf, const void* chemi,
+                     const void* dt, const void* aux, const void* tiles,
+                     int n_tiles, const void* flags, void* part_i,
+                     void* stream);   // fused_step_closure.cu
+
 int hf2d_gfc(int body, const void* consts, const void* cin, void* cout,
              void* scr, const void* idn, const void* mf, const void* ctxw,
              const void* chemf, const void* chemi, const void* dt,
@@ -471,17 +460,10 @@ int hf2d_gfc(int body, const void* consts, const void* cin, void* cout,
         static_cast<const int32_t*>(flags), static_cast<int32_t*>(part_i)
     if (c.euler && cc.closure)
         return static_cast<int>(cudaErrorInvalidValue);
-    else if (cc.closure && body == BODY_GENERAL)
-        gfc_closure_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
-            HF2D_GFC_ARGS(cc));
-    else if (cc.closure && body == BODY_SPEC)
-        gfc_closure_kernel<BODY_SPEC><<<n_tiles, block, 0, s>>>(
-            HF2D_GFC_ARGS(cc));
-    else if (cc.closure && body == BODY_DUAL)
-        gfc_closure_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(
-            HF2D_GFC_ARGS(cc));
-    else if (cc.closure)   // no staged body in the closures' form
-        return static_cast<int>(cudaErrorInvalidValue);
+    else if (cc.closure)   // the deck's closures' form (no staged body)
+        return hf2d_gfc_closure(body, consts, cin, cout, scr, idn, mf, ctxw,
+                                chemf, chemi, dt, aux, tiles, n_tiles, flags,
+                                part_i, stream);
     else if (c.euler && body == BODY_GENERAL)
         gfc_euler_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
             HF2D_GFC_ARGS(c));
@@ -560,6 +542,8 @@ int hf2d_heat(const void* consts, const void* cout, void* scr,
 
 const void* hf2d_ext_kernel_fn(int stage, int body);   // fused_step_ext.cu
 const void* hf2d_mw_kernel_fn(int stage, int body);    // fused_step_mw.cu
+// fused_step_closure.cu
+const void* hf2d_closure_kernel_fn(int stage, int body);
 
 // Launch facts of one kernel, for the measurements of chip_smoke.py:
 // out[0] registers a thread, out[1] local memory bytes a thread (spills and
@@ -567,8 +551,10 @@ const void* hf2d_mw_kernel_fn(int stage, int body);    // fused_step_mw.cu
 // a launch, out[4] the CTAs of CTA_THREADS threads an SM holds at that
 // shared memory, out[5] the device's SM count.  `kernel` is 8 * stage +
 // body: stage 0 gfc, 1 pass12 (body BODY_*), 2 heat (body ignored), 3
-// gfc_euler (BODY_GENERAL or BODY_DUAL), 4 gfc_closure (BODY_GENERAL,
-// BODY_SPEC or BODY_DUAL); the extended forms 5 gfc_ext, 6
+// gfc_euler (BODY_GENERAL or BODY_DUAL); the closures' forms 4 gfc_closure
+// (every family), 15 gfc_keps_var, 16 gfc_sa, 17 gfc_smag, 18 gfc_prandtl
+// (BODY_GENERAL, BODY_DUAL and, in the forms 4 and 15, BODY_SPEC;
+// hf2d_closure_kernel_fn); the extended forms 5 gfc_ext, 6
 // gfc_closure_ext, 7 gfc_euler_ext, 8 pass12_ext (the all-features form),
 // 9 pass12_axi (the axisymmetric-only form), 10 gfc_axi (gfc's
 // axisymmetric-only form) (hf2d_ext_kernel_fn); the moving-wall forms 11
@@ -579,13 +565,13 @@ int hf2d_kernel_info(int kernel, int* out) {
     const int stage = kernel / 8, body = kernel % 8;
     size_t dyn = 0;
     int ctas = 0, per_sm = 0, err = 0;
-    if (stage > 14 || (stage < 2 && body > BODY_STAGED)
-        || (stage == 3 && body != BODY_GENERAL && body != BODY_DUAL)
-        || (stage == 4 && body > BODY_DUAL))
+    if (stage > 18 || (stage < 2 && body > BODY_STAGED)
+        || (stage == 3 && body != BODY_GENERAL && body != BODY_DUAL))
         return static_cast<int>(cudaErrorInvalidValue);
-    if (stage >= 5) {
-        fn = stage >= 11 ? hf2d_mw_kernel_fn(stage, body)
-                         : hf2d_ext_kernel_fn(stage, body);
+    if (stage >= 4) {
+        fn = stage == 4 || stage >= 15 ? hf2d_closure_kernel_fn(stage, body)
+           : stage >= 11               ? hf2d_mw_kernel_fn(stage, body)
+                                       : hf2d_ext_kernel_fn(stage, body);
         if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     } else if (stage < 2 && body == BODY_STAGED) {
         const WindowKernel& k = stage == 0 ? GFC_WINDOW : PASS12_WINDOW;
@@ -604,10 +590,6 @@ int hf2d_kernel_info(int kernel, int* out) {
     } else if (stage == 3) {
         fn = body == BODY_DUAL ? (const void*)gfc_euler_kernel<BODY_DUAL>
                                : (const void*)gfc_euler_kernel<BODY_GENERAL>;
-    } else if (stage == 4) {
-        fn = body == BODY_SPEC ? (const void*)gfc_closure_kernel<BODY_SPEC>
-           : body == BODY_DUAL ? (const void*)gfc_closure_kernel<BODY_DUAL>
-                               : (const void*)gfc_closure_kernel<BODY_GENERAL>;
     } else {
         fn = (const void*)heat_kernel;
     }

@@ -1,5 +1,7 @@
 // Device code shared by the fused-iteration kernels of fused_step.cu (the
-// flat forms) and fused_step_ext.cu (the extended forms): the constants,
+// flat forms), fused_step_closure.cu (the closures' flat forms),
+// fused_step_ext.cu (the extended forms) and fused_step_mw.cu (the
+// moving-wall forms): the constants,
 // the loaders, the node bodies gfc_node / pass12_node and the tile bodies
 // gfc_tile / pass12_tile.  What the kernels compute, replace and are
 // bounded by is in fused_step.cu's header.
@@ -43,13 +45,15 @@ struct Consts {
 };
 
 // The closures' constants: the host passes every entry one struct, Consts
-// followed by these fields (ops/fused_step.py KernelConsts); only
-// gfc_closure_kernel takes them, so the other kernels keep their Consts,
-// code and registers.
+// followed by these fields (ops/fused_step.py KernelConsts); only the
+// closures' gfc forms (fused_step_closure.cu) take them, so the other
+// kernels keep their Consts, code and registers.
 struct ClosureConsts : Consts {
     int closure;           // an NS deck whose closure is not standard
-                           // k-eps: hf2d_gfc launches gfc_closure_kernel
-    int models;            // MODEL_* bits of the families of p.models
+                           // k-eps: hf2d_gfc launches a closures' form
+                           // (hf2d_gfc_closure)
+    int models;            // MODEL_* bits of the families of p.models (a
+                           // lone family picks its own form)
     int prandtl_form;      // the Prandtl family's length (TEM_*: Prandtl,
                            // van Driest, or Escudier/Klebanoff with
                            // delta_bl > 0)
@@ -83,7 +87,7 @@ static_assert(sizeof(ExtConsts) == sizeof(ClosureConsts) + 7 * 4,
 // source field (9 planes of the grid), and for d2 the scratch, ctx words
 // and neighbour flags of the node's neighbours; the node (i, j); gfc's
 // chemistry-table coefficients, staged in shared memory (chem_coef).  The
-// flat forms pass an empty one and read none of it.
+// flat forms read none of it, but the closures' forms the coefficients.
 struct ExtIn {
     const float* __restrict__ src;
     const float* __restrict__ scr;
@@ -567,6 +571,11 @@ constexpr int N_CHEM_TABLES = 12;
 constexpr int CHEM_COEF = 3 * N_CHEM_TABLES;
 constexpr int CHEM_COEF_MAX = 1024;
 
+// the table coefficients a CTA stages (stage_chem_coef): the kernel's
+// static shared memory and the pointer gfc_tile takes
+#define HF2D_COEF __shared__ float4 coef4[CHEM_COEF_MAX / 4];
+#define HF2D_COEF_PTR reinterpret_cast<float*>(coef4)
+
 __device__ __forceinline__ void stage_chem_coef(
         float* coef, const float* __restrict__ chemf,
         const int32_t* __restrict__ chemi) {
@@ -604,13 +613,14 @@ __device__ __forceinline__ float mixture_coef(
 }
 
 // ---------------------------------------------------------------------------
-// The turbulence closures of gfc_closure_kernel: core/physics._turb_mod_rans
-// for one node (TurbModRANS2D, hyper_flow_node.hpp:601-957; the JAX
-// package's physics.py:299-542), on an NS deck whose closure is not
-// standard k-eps (ops/fused_step.py is_closure).  The families run where
-// the case has them (Consts::models, p.models) and each writes only at its
-// own nodes (the exclusive masks m_prandtl, m_keps, m_sa, m_smag), in
-// JAX's order: Prandtl, k-eps, SA, Smagorinsky.  Every expression keeps
+// The turbulence closures of the closures' gfc (fused_step_closure.cu):
+// core/physics._turb_mod_rans for one node (TurbModRANS2D,
+// hyper_flow_node.hpp:601-957; the JAX package's physics.py:299-542), on
+// an NS deck whose closure is not standard k-eps (ops/fused_step.py
+// is_closure).  The families run where the case has them (FAM, else
+// ClosureConsts::models, p.models) and each writes only at its own nodes
+// (the exclusive masks m_prandtl, m_keps, m_sa, m_smag), in JAX's order:
+// Prandtl, k-eps, SA, Smagorinsky.  Every expression keeps
 // JAX's operation order, its Python constants folded in double and rounded
 // once (F), and its integer powers in lax.integer_pow's form (x^3 = x x^2,
 // x^6 = x^2 (x^2)^2).
@@ -619,6 +629,19 @@ constexpr int TEM_VAN_DRIEST = 1, TEM_ESCUDIER = 2, TEM_KLEBANOFF = 3;
 constexpr int TEM_CHIEN = 5, TEM_JL = 6, TEM_LSY = 7, TEM_RNG = 8;
 constexpr int MODEL_PRANDTL = 1, MODEL_KEPS = 2, MODEL_SA = 4,
               MODEL_SMAG = 8;   // ops/fused_step.py MODEL_BITS
+
+// The closure families a form compiles (FAM), fixed at compile time: the
+// MODEL_* bit of a deck's one family (its form carries no other family's
+// code, so fewer registers live), or FAM_ALL, which tests each family of
+// c.models at run time (a deck with more than one; the extended and
+// moving-wall forms)
+constexpr int FAM_ALL = 0;
+
+template <int FAM, class C>
+__device__ __forceinline__ bool has_family(const C& c, int model) {
+    if constexpr (FAM == FAM_ALL) return (c.models & model) != 0;
+    else return (FAM & model) != 0;
+}
 
 // What the closures read at the node: its state after the Dirichlet
 // enforcement of U and V, the carry's p and Tg (the state before this
@@ -646,8 +669,8 @@ __device__ __forceinline__ float safe_div(float a, float b) {
 // Updates s[7], s[8] and mu_t; fills `t`.  EXT, on an axisymmetric deck
 // (`axi`, the node radius `y_r`): k-eps's production reads U / y_r and
 // k-eps and SA write their radial fluxes (physics.py:350, 446-450,
-// 514-518).
-template <bool SPEC, bool EXT = false>
+// 514-518).  FAM: the families compiled (has_family).
+template <bool SPEC, bool EXT = false, int FAM = FAM_ALL>
 __device__ __forceinline__ void closures(const ClosureConsts& c,
                                          const uint32_t* w,
                                          const NodeFlow& f, float* s,
@@ -665,7 +688,7 @@ __device__ __forceinline__ void closures(const ClosureConsts& c,
     const float grad_mag = fmaxf(fabsf(f.dUdy), fabsf(f.dVdx));
 
     // ---------------- Prandtl zero-equation family (612-638) --------------
-    if ((c.models & MODEL_PRANDTL) && m_prandtl) {
+    if (has_family<FAM>(c, MODEL_PRANDTL) && m_prandtl) {
         const float n_0 = f.l_min * F(0.41);
         float l_p = n_0;
         if (c.prandtl_form == TEM_VAN_DRIEST) {
@@ -681,7 +704,7 @@ __device__ __forceinline__ void closures(const ClosureConsts& c,
     }
 
     // ---------------- k-eps family (640-820) -------------------------------
-    if ((c.models & MODEL_KEPS) && m_keps) {
+    if (has_family<FAM>(c, MODEL_KEPS) && m_keps) {
         float Sk = s[7], Se = s[8];
         const float l_base = fmaxf(f.l_min, c.min_dxdy) * F(0.41);
         const float l_s = l_base != 0.f ? l_base : 1.f;
@@ -756,7 +779,7 @@ __device__ __forceinline__ void closures(const ClosureConsts& c,
     }
 
     // ---------------- Spalart-Allmaras (822-917) ---------------------------
-    if ((c.models & MODEL_SA) && m_sa) {
+    if (has_family<FAM>(c, MODEL_SA) && m_sa) {
         const float Snu = s[7];
         const bool full = !sa_bc && !f.fc;
         const float nu = mu / f.rho_s;
@@ -807,7 +830,7 @@ __device__ __forceinline__ void closures(const ClosureConsts& c,
     }
 
     // ---------------- Smagorinsky LES (927-956), uniform mesh --------------
-    if ((c.models & MODEL_SMAG) && m_smag && f.is_mu_t) {
+    if (has_family<FAM>(c, MODEL_SMAG) && m_smag && f.is_mu_t) {
         const float Wxy = F(0.5) * (f.dVdx - f.dUdy);
         const float Omega = sqrtf(F(2.0) * Wxy * Wxy);
         mu_t = fmaxf(0.f, rho * c.smag_cs2 * Omega);   // (Cs delta)^2
@@ -820,10 +843,12 @@ __device__ __forceinline__ void closures(const ClosureConsts& c,
 // frozen-dt-overrun flags of the node.
 //
 // CLOSURE is the form of the NS decks whose closure is not standard
-// k-eps: fill_node's turbulence is `closures` above, which reads l_min
-// and, where the closure reads it, y+ (META_Y_PLUS) from the meta planes.
-// A compile-time flag as EULER is: the standard k-eps bodies keep their
-// code, registers and 3-CTA budget.
+// k-eps: fill_node's turbulence is `closures` above (the families FAM),
+// which reads l_min and, where the closure reads it, y+ (META_Y_PLUS) from
+// the meta planes, and the table values come from the staged coefficients
+// (mixture_coef), as in the extended forms.  A compile-time flag as EULER
+// is: the standard k-eps bodies keep their code, registers and 3-CTA
+// budget.
 //
 // EULER is the form of the Euler decks (ProblemType=0, p.sm != SM_NS;
 // the TPU kernel's non-NS staging, pallas_step.py:405-414): no gradients
@@ -836,8 +861,8 @@ __device__ __forceinline__ void closures(const ClosureConsts& c,
 // `src` reads the carry `cin` (through the node's collapse) and the meta
 // planes mf (aux), `w` holds the node's ctx words, `st` its neighbour
 // flags.
-template <bool SPEC, bool EULER, bool CLOSURE, int XF = XF_FLAT, class C,
-          class Src>
+template <bool SPEC, bool EULER, bool CLOSURE, int XF = XF_FLAT,
+          int FAM = FAM_ALL, class C, class Src>
 __device__ __forceinline__ void gfc_node(
         const C& c, const Src& src, const uint32_t* w,
         const Stencil& st, float* __restrict__ cout,
@@ -971,8 +996,9 @@ __device__ __forceinline__ void gfc_node(
     float f7 = 0.f, f8 = 0.f;   // EXT: the turbulence add-ons of F
     if constexpr (CLOSURE) {
         const bool y_plus_read =
-            ((c.models & MODEL_PRANDTL) && c.prandtl_form == TEM_VAN_DRIEST)
-            || ((c.models & MODEL_KEPS) && c.keps_form == TEM_CHIEN);
+            (has_family<FAM>(c, MODEL_PRANDTL)
+             && c.prandtl_form == TEM_VAN_DRIEST)
+            || (has_family<FAM>(c, MODEL_KEPS) && c.keps_form == TEM_CHIEN);
         const NodeFlow f{rho, rho_s, U, V, mu, CP, R, k_cpcv,
                          ld(CARRY_P, NB_C), ld(CARRY_TG, NB_C), dUdx, dUdy,
                          dVdx, dVdy, dkdx, dkdy, depsdx, depsdy,
@@ -980,7 +1006,7 @@ __device__ __forceinline__ void gfc_node(
                          y_plus_read ? src.aux(META_Y_PLUS) : 0.f,
                          is_mu_t, fc};
         TurbFlux t{0.f, 0.f, 0.f, 0.f, srcd7, srcd8, 0.f, 0.f};
-        closures<SPEC, EXT>(c, w, f, s, mu_t, t, axi, y_r);
+        closures<SPEC, EXT, FAM>(c, w, f, s, mu_t, t, axi, y_r);
         a7 = t.a7;
         a8 = t.a8;
         b7 = t.b7;
@@ -1224,10 +1250,10 @@ __device__ __forceinline__ void gfc_node(
     // mixture properties at Tg (pre-clip mass fractions)
     const float R_new = chemf[0] * Yfu + chemf[1] * Yox + chemf[2] * Ycp
                         + chemf[3] * Yair;
-    // (the extended forms but the Euler one from the staged coefficients:
-    // mixture_coef, gfc_tile)
+    // (the extended forms but the Euler one, and the closures' forms, from
+    // the staged coefficients: mixture_coef, gfc_tile)
     float CP_new, lam_new, mu_new;
-    if constexpr (EXT && !EULER) {
+    if constexpr ((EXT || CLOSURE) && !EULER) {
         CP_new = mixture_coef(ext.coef, chemf, chemi, 0, Tg_f, Yfu, Yox, Ycp,
                               Yair);
         lam_new = mixture_coef(ext.coef, chemf, chemi, 1, Tg_f, Yfu, Yox, Ycp,
@@ -1630,9 +1656,11 @@ __device__ __forceinline__ bool spec_tile(const int32_t* __restrict__ flags,
 }
 
 // One node of gfc on direct global loads; XF: the feature form (the
-// extended forms read the staged table coefficients `coef`, and the
-// all-features form the source field `srcp`).
-template <bool SPEC, bool EULER, bool CLOSURE, int XF = XF_FLAT, class C>
+// extended and the closures' forms read the staged table coefficients
+// `coef`, and the all-features form the source field `srcp`); FAM: the
+// closure families compiled.
+template <bool SPEC, bool EULER, bool CLOSURE, int XF = XF_FLAT,
+          int FAM = FAM_ALL, class C>
 __device__ __forceinline__ void gfc_direct(
         const C& c, const float* __restrict__ cin,
         float* __restrict__ cout, float* __restrict__ scr,
@@ -1648,7 +1676,7 @@ __device__ __forceinline__ void gfc_direct(
     int8_t id4[4];
     load_ctx<SPEC>(w, ctxw, P, n);
     load_idn<SPEC>(id4, idn, P, n);
-    gfc_node<SPEC, EULER, CLOSURE, XF>(
+    gfc_node<SPEC, EULER, CLOSURE, XF, FAM>(
         c, direct_src<SPEC>(c, cin, mf, w, P, i, j), w,
         make_stencil<SPEC>(id4), cout, scr, chemf, chemi, dt, cfl_scen,
         mu_t_iter, uns, ovr,
@@ -1717,12 +1745,14 @@ __device__ __forceinline__ void pass12_partials(const ArrayAcc& acc,
 
 // A CTA of gfc over its tile; EULER: every tile runs the Euler form of the
 // general body (an Euler deck has no spec tiles, spec_supported);
-// CLOSURE: every body runs the closures' form; XF: the feature form (an
-// extended form but the Euler one stages the table coefficients into
-// `coef` first, CHEM_COEF_MAX floats of shared memory: the Euler form
-// looks up only CP, 4 tables, and ran 1.003-1.006x as long with the
-// staged block as without it on an H100).
-template <int BODY, bool EULER, bool CLOSURE, int XF = XF_FLAT, class C>
+// CLOSURE: every body runs the closures' form, its families FAM; XF: the
+// feature form.  An extended form but the Euler one, and every closures'
+// form, stages the table coefficients into `coef` first (CHEM_COEF_MAX
+// floats of shared memory, HF2D_COEF): the Euler form looks up only CP, 4
+// tables, and ran 1.003-1.006x as long with the staged block as without
+// it on an H100.
+template <int BODY, bool EULER, bool CLOSURE, int XF = XF_FLAT,
+          int FAM = FAM_ALL, class C>
 __device__ __forceinline__ void gfc_tile(
         const C& c, const float* __restrict__ cin,
         float* __restrict__ cout, float* __restrict__ scr,
@@ -1736,15 +1766,15 @@ __device__ __forceinline__ void gfc_tile(
     const int i = (tile / c.nby) * TILE_X + threadIdx.y;
     const int j = (tile % c.nby) * TILE_Y + threadIdx.x;
     bool uns = false, ovr = false;
-    if constexpr (XF != XF_FLAT && !EULER)
+    if constexpr ((XF != XF_FLAT || CLOSURE) && !EULER)
         stage_chem_coef(coef, chemf, chemi);
     if (i < c.X && j < c.Y) {
         if (!EULER && spec_tile<BODY>(flags, tile))
-            gfc_direct<true, false, CLOSURE, XF>(
+            gfc_direct<true, false, CLOSURE, XF, FAM>(
                 c, cin, cout, scr, idn, mf, ctxw, chemf, chemi, *dtp, aux[1],
                 aux[2] > F(0.5), i, j, uns, ovr, srcp, coef);
         else
-            gfc_direct<false, EULER, CLOSURE, XF>(
+            gfc_direct<false, EULER, CLOSURE, XF, FAM>(
                 c, cin, cout, scr, idn, mf, ctxw, chemf, chemi, *dtp, aux[1],
                 aux[2] > F(0.5), i, j, uns, ovr, srcp, coef);
     }

@@ -72,10 +72,6 @@
 // their times.
 #include "fused_step.cuh"
 
-// the table coefficients a CTA stages (stage_chem_coef)
-#define HF2D_COEF __shared__ float4 coef4[CHEM_COEF_MAX / 4];
-#define HF2D_COEF_PTR reinterpret_cast<float*>(coef4)
-
 // Every extended gfc at 3 CTAs an SM, as gfc_closure_ext_kernel: without
 // the bound ptxas gave the spec body 64 registers and 4 CTAs an SM with a
 // spill, and the general bodies larger spills, and on an H100
@@ -120,8 +116,6 @@ gfc_euler_ext_kernel(HF2D_GFC_PARAMS(ExtConsts),
 }
 #undef HF2D_GFC_PARAMS
 #undef HF2D_GFC_FORWARD
-#undef HF2D_COEF
-#undef HF2D_COEF_PTR
 
 // pass12's extended forms, each with the budget of pass12_kernel (3 CTAs
 // an SM): pass12_axi_kernel is the axisymmetric-only form (XF_AXI: F /

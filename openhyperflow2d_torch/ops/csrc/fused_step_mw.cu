@@ -39,9 +39,6 @@
 // PERF.md keeps their times.
 #include "fused_step.cuh"
 
-#define HF2D_COEF __shared__ float4 coef4[CHEM_COEF_MAX / 4];
-#define HF2D_COEF_PTR reinterpret_cast<float*>(coef4)
-
 // each at 3 CTAs an SM, as its all-features form
 template <int BODY>
 __global__ void __launch_bounds__(CTA_THREADS, 3)
@@ -68,8 +65,6 @@ gfc_euler_mw_kernel(HF2D_GFC_PARAMS(ExtConsts),
 }
 #undef HF2D_GFC_PARAMS
 #undef HF2D_GFC_FORWARD
-#undef HF2D_COEF
-#undef HF2D_COEF_PTR
 
 template <int BODY>
 __global__ void __launch_bounds__(CTA_THREADS, 3)

@@ -46,11 +46,14 @@ body, gfc in its Euler form (``gfc_euler_kernel``, which reads lam_t from
 the chunk-constant meta plane META_LAM_T; the TPU kernel's non-NS staging,
 pallas_step.py:405-414), pass12 as on NS decks.  NS decks with any
 closure but standard k-eps (``is_closure``: the Prandtl family, SA,
-Smagorinsky, or a k-eps variant) run gfc as ``gfc_closure_kernel``, whose
-node code carries every closure of the JAX package, and read y+ from the
-chunk-constant meta plane META_Y_PLUS where the closure does (van Driest,
-Chien; JAX stages it at pallas_step.py:407-410).  Their spec tiles exist
-only where the deck has k-eps nodes (``spec_supported``).  A deck with
+Smagorinsky, or a k-eps variant) run gfc in a closures' form
+(csrc/fused_step_closure.cu, ``closure_form``): the one family of a deck
+whose p.models holds one (``gfc_keps_var_kernel``, ``gfc_sa_kernel``,
+``gfc_smag_kernel``, ``gfc_prandtl_kernel``), else ``gfc_closure_kernel``,
+whose node code carries every closure of the JAX package; they read y+
+from the chunk-constant meta plane META_Y_PLUS where the closure does (van
+Driest, Chien; JAX stages it at pallas_step.py:407-410).  Their spec tiles
+exist only where the deck has k-eps nodes (``spec_supported``).  A deck with
 moving-wall sources (``isSrcAdd``) runs the moving-wall forms of every
 family (csrc/fused_step_mw.cu) on its general and dual launches: gfc
 writes the SrcAdd of the equations MW_EQ at its no-slip wall nodes into
@@ -128,7 +131,8 @@ _PRIMS = 18   # carry planes from here on are written by gfc
 
 # the kernels the solver's paths launch (on Euler decks gfc_euler_kernel
 # in place of gfc_kernel: the general body's Euler form; on NS decks with
-# any closure but standard k-eps gfc_closure_kernel; pass12 has neither);
+# any closure but standard k-eps a closures' form, CLOSURE_FORMS; pass12
+# has neither);
 # then the forms no path launches, which stay as chip_smoke.py's A/B
 # candidates: heat_kernel, the heat stage as a launch of its own (folded
 # into pass12's general body, it saves the launch and the SrcAdd plane's
@@ -138,9 +142,19 @@ NS_KERNEL_NAMES = ("gfc_kernel<spec>", "gfc_kernel<general>",
                    "pass12_kernel<spec>", "pass12_kernel<general>",
                    "gfc_kernel<dual>", "pass12_kernel<dual>")
 EULER_KERNEL_NAMES = ("gfc_euler_kernel<general>", "gfc_euler_kernel<dual>")
-CLOSURE_KERNEL_NAMES = ("gfc_closure_kernel<spec>",
-                        "gfc_closure_kernel<general>",
-                        "gfc_closure_kernel<dual>")
+# the closures' gfc in forms fixed at compile time (csrc/
+# fused_step_closure.cu; ``closure_form``): a family's own where p.models
+# holds that family alone, else every family's ("all", each tested at run
+# time); spec bodies only in the forms that carry k-eps (no other family
+# makes spec tiles, static_ctx.spec_supported)
+CLOSURE_FORMS = {"all": "gfc_closure_kernel", "keps": "gfc_keps_var_kernel",
+                 "sa": "gfc_sa_kernel", "smag": "gfc_smag_kernel",
+                 "prandtl": "gfc_prandtl_kernel"}
+CLOSURE_SPEC_FORMS = ("all", "keps")
+CLOSURE_KERNEL_NAMES = tuple(
+    f"{kernel}<{body}>" for form, kernel in CLOSURE_FORMS.items()
+    for body in (("spec", "general", "dual") if form in CLOSURE_SPEC_FORMS
+                 else ("general", "dual")))
 # the extended forms (axisymmetric flow, external sources; pass12's also
 # d2*-NULL soft BCs and NRBC): kernels of their own, so the flat,
 # sourceless decks keep their symbols and code (``gfc_ext``,
@@ -208,13 +222,22 @@ MODEL_BITS = {"prandtl": 1, "keps": 2, "sa": 4, "smag": 8}
 
 def is_closure(params) -> bool:
     """An NS deck with a closure other than standard k-eps (a Prandtl,
-    SA or Smagorinsky family, or a k-eps variant): gfc runs
-    ``gfc_closure_kernel``, whose node code carries every closure
-    (physics.py:299-542 of the JAX package)."""
+    SA or Smagorinsky family, or a k-eps variant): gfc runs a closures'
+    form (``closure_form``; physics.py:299-542 of the JAX package)."""
     p = params
     return p.sm == fl.SM_NS and (
         any(m != "keps" for m in p.models)
         or ("keps" in p.models and p.tem in KEPS_VARIANTS))
+
+
+def closure_form(params) -> str:
+    """The closures' form of a closure deck's flat gfc (a key of
+    CLOSURE_FORMS), as the C entry hf2d_gfc_closure picks it from
+    ClosureConsts::models: the deck's family where p.models holds one
+    (k-eps there is a variant: standard k-eps alone is no closure deck),
+    else "all"."""
+    models = tuple(params.models)
+    return models[0] if len(models) == 1 else "all"
 
 
 def gfc_ext(params) -> bool:
@@ -621,8 +644,9 @@ def kernel_consts(p: SolverParams, plan: TilePlan, heat: bool,
         nrbc_beta0=p.nrbc_beta0, wall_src=int(p.isSrcAdd))
 
 
-# the extended gfc forms' table coefficients (csrc/fused_step.cuh
-# coef_lookup), which a CTA stages in CHEM_COEF_MAX floats of shared memory
+# the extended and the closures' gfc forms' table coefficients
+# (csrc/fused_step.cuh coef_lookup), which a CTA stages in CHEM_COEF_MAX
+# floats of shared memory
 CHEM_COEF_MAX = 1024
 
 
@@ -659,9 +683,10 @@ def chem_coef(tables) -> np.ndarray:
 def pack_chem(chem: ChemTables, p: SolverParams):
     """(chemf, chemi): R of the 4 species then each table's xs and ys, in
     (prop, species) order; chemi holds (offset, knots, ascending) per
-    table.  Then, for the extended gfc forms (chem_coef), the coefficient
-    block at the end of chemf, and its length and offset at the end of
-    chemi (which the flat forms do not read)."""
+    table.  Then, for the extended and the closures' gfc forms
+    (chem_coef), the coefficient block at the end of chemf, and its length
+    and offset at the end of chemi (which the other flat forms do not
+    read)."""
     vals = [getattr(chem, f"R_{sp}").reshape(1) for sp in _CHEM_SPECIES]
     off, meta, tables = 4, [], []
     for prop in _CHEM_PROPS:
@@ -734,11 +759,12 @@ class FusedStep:
     heat_kernel (``iteration_launches``).  On an Euler deck gfc is
     ``gfc_euler_kernel`` and reads lam_t from meta plane META_LAM_T, which
     the chunk sets from its state (``set_lam_t``).  On an NS deck with a
-    closure other than standard k-eps (``is_closure``) gfc is
-    ``gfc_closure_kernel``; where the closure reads y+ (van Driest,
-    Chien) it reads meta plane META_Y_PLUS, which the chunk sets from its
-    state (``set_y_plus``), so a ``recalc_y_plus`` between chunks reaches
-    the next one.  On an axisymmetric deck or one with external sources
+    closure other than standard k-eps (``is_closure``) gfc is its
+    closures' form (``closure_form``); where the closure reads y+ (van
+    Driest, Chien) it reads meta plane META_Y_PLUS, which the chunk sets
+    from its state (``set_y_plus``), so a ``recalc_y_plus`` between chunks
+    reaches the next one.  On an axisymmetric deck or one with external
+    sources
     gfc runs its extended form (``gfc_ext``; standard k-eps in the feature
     form ``gfc_form``), and pass12 runs its own there and on decks with
     d2*-NULL soft BCs or NRBC (``pass12_ext``, in the feature form
@@ -759,6 +785,7 @@ class FusedStep:
         self.has_heat = has_heat_stage(p) and plan.heat_tiles.numel() > 0
         self.euler = is_euler(p)
         self.closure = is_closure(p)
+        self.closure_form = closure_form(p) if self.closure else None
         self.has_y_plus = needs_y_plus(p)
         self.gfc_ext, self.pass12_ext = gfc_ext(p), pass12_ext(p)
         # the feature forms of gfc_ext_kernel and pass12's extended kernel
@@ -777,11 +804,11 @@ class FusedStep:
         self.ctxw = build_packed_ctx(meta, p)
         self.chemf, self.chemi = pack_chem(chem, p)
         n_coef = int(self.chemi[-2])
-        if self.gfc_ext and n_coef > CHEM_COEF_MAX:
+        if (self.gfc_ext or self.closure) and n_coef > CHEM_COEF_MAX:
             raise NotImplementedError(
                 f"the chemistry tables' coefficient block holds {n_coef} "
-                f"floats; the extended gfc kernels stage at most "
-                f"{CHEM_COEF_MAX}")
+                f"floats; the extended and the closures' gfc kernels stage "
+                f"at most {CHEM_COEF_MAX}")
         self.zero_src = torch.zeros((fl.NUM_EQ, p.MaxX, p.MaxY),
                                     dtype=p.torch_dtype, device=meta.CT.device)
         # the external source field (9, X, Y) the extended forms read
@@ -825,6 +852,8 @@ class FusedStep:
             form = ("all" if self.gfc_form == "mw" and body == "spec"
                     else self.gfc_form)
             return f"{GFC_FORMS[form]}<{body}>"
+        if self.closure and not self.gfc_ext:
+            return f"{CLOSURE_FORMS[self.closure_form]}<{body}>"
         kernel = ("gfc_euler" if self.euler else
                   "gfc_closure" if self.closure else "gfc")
         form = ("_mw" if mw else "_ext" if self.gfc_ext else "")

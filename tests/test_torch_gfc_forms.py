@@ -14,9 +14,9 @@ feature has no form.
 (ii) ``pack_chem`` appends, after what the flat kernels read, each
 ascending table's (x0, y0, m1) and for s >= 2 (x_{s-1}, m_s - m_{s-1}),
 m_s = (y_s - y_{s-1}) / (x_s - x_{s-1}) in float32: the floats
-table_lookup computes at every node, so the extended kernels read them
-once per CTA.  Held bit for bit on the combustor's and the bubble's
-tables and on ascending tables of 2-16 knots made from a numpy seed;
+table_lookup computes at every node, so the extended kernels and the
+closures' flat ones read them once per CTA.  Held bit for bit on the
+combustor's, the bubble's and the flat SA channel's tables and on ascending tables of 2-16 knots made from a numpy seed;
 the prefix is unchanged; a table of one knot or not ascending carries no
 coefficients.
 
@@ -81,11 +81,16 @@ DECKS = {
     "scramjet": (lambda: ex.scramjet_deck(64, 48), None, "gfc_ext_kernel",
                  "all"),
 }
+# a flat deck whose gfc stages the coefficient block too: the closures'
+# forms (the SA wall channel, not axisymmetric: gfc_sa_kernel)
+FLAT_DECKS = {"sa_flat": lambda: ex.wall_channel_deck(
+    48, 40, 3, fl.TEM_Spalart_Allmaras)}
 
 
 @functools.lru_cache(maxsize=None)
 def port_case(name):
-    deck, tem, _, _ = DECKS[name]
+    deck, tem = DECKS[name][:2] if name in DECKS else (FLAT_DECKS[name],
+                                                       None)
     case = build_case(deck(), dtype="float32")
     if tem is not None:
         case = dataclasses.replace(case, params=dataclasses.replace(
@@ -171,10 +176,11 @@ def prefix(chem, p):
     return torch.cat(vals), torch.tensor(meta, dtype=torch.int32)
 
 
-@pytest.mark.parametrize("name", ["combustor", "bubble"])
+@pytest.mark.parametrize("name", ["combustor", "bubble", "sa_flat"])
 def test_the_block_of_the_decks_tables(name):
     solver = Solver(port_case(name), device="cpu", use_kernels=True)
     step = solver.fused
+    assert step.gfc_ext == (name != "sa_flat")
     want_f, want_i = prefix(solver.chem, solver.params)
     assert torch.equal(step.chemf[:want_f.numel()], want_f)
     assert torch.equal(step.chemi[:want_i.numel()], want_i)

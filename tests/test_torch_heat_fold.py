@@ -13,7 +13,7 @@ wall_bottom=True, adiabatic=False, with_step=True)`` and
 Euler cylinders with conducting walls (``cylinders_deck(64, 48)``,
 isAdiabaticWall=0: every tile general, lam_t the chunk-constant plane), on
 the 64x256 step deck with the RNG k-eps variant (TurbExtModel=8: gfc in
-the closures' form, gfc_closure_kernel), on the 64x256 step deck with
+the closures' form, gfc_keps_var_kernel), on the 64x256 step deck with
 FlowType=1 (gfc and pass12 in their extended forms, F in the scratch) and
 on the airfoil with conducting walls (``airfoil_deck(128, 128)``,
 isAdiabaticWall=0: a solid body inside the spec set),
@@ -80,7 +80,7 @@ def _conducting(deck):
 
 
 def _rng(deck):
-    """The deck with the RNG k-eps variant: gfc runs gfc_closure_kernel's
+    """The deck with the RNG k-eps variant: gfc runs gfc_keps_var_kernel's
     plain version, pass12 the folded heat stage as on the standard deck."""
     deck.data["TurbExtModel"] = "8"
     return deck

@@ -232,7 +232,7 @@ def _decks():
 BEFORE = {"combustor": ("gfc_kernel", "pass12_kernel"),
           "step_heat": ("gfc_kernel", "pass12_kernel"),
           "cylinders": ("gfc_euler_kernel", "pass12_kernel"),
-          "rng": ("gfc_closure_kernel", "pass12_kernel"),
+          "rng": ("gfc_keps_var_kernel", "pass12_kernel"),
           "combustor_axisym": ("gfc_axi_kernel", "pass12_axi_kernel"),
           "bubble_axisym": ("gfc_euler_ext_kernel", "pass12_axi_kernel"),
           "scramjet": ("gfc_ext_kernel", "pass12_ext_kernel")}

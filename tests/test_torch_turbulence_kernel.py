@@ -1,4 +1,4 @@
-"""Port parity: the closures on the kernel path (gfc_closure_kernel's
+"""Port parity: the closures on the kernel path (the closures' gfc forms'
 plain version) against JAX's Pallas kernel, part 1: the closures that read
 y+, Chien and van Driest (part 2: tests/test_torch_turbulence_kernel_sa.py,
 part 3: tests/test_torch_turbulence_kernel_rng.py).

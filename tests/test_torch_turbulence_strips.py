@@ -19,7 +19,7 @@
   declares KernelConsts' fields in KernelConsts' order; the header's meta
   plane indices, family bits and TurbExtModel ids are fused_step.py's and
   core/flags'.
-* An iteration's launches on a closure deck name gfc_closure_kernel in
+* An iteration's launches on a closure deck name its closures' form in
   both dispatch forms; the staged body raises; the y+ plane is refreshed
   every chunk, so a recalc_y_plus between chunks gives Chien a positive
   mu_t on the kernel path.
@@ -201,17 +201,18 @@ def test_header_constants_match_python():
         assert const(cu) == getattr(fl, py), cu
 
 
-@pytest.mark.parametrize("name,spec", [("chien", True), ("sa", False)])
-def test_closure_launches(name, spec):
+@pytest.mark.parametrize("name,spec,gfc", [
+    ("chien", True, "gfc_keps_var_kernel"), ("sa", False, "gfc_sa_kernel")])
+def test_closure_launches(name, spec, gfc):
     case = _f32(name, 48, 96)     # a middle column of complete tiles
     for dispatch in fs.DISPATCH_FORMS:
         s = Solver(case, device="cpu", use_kernels=True, dispatch=dispatch)
         got = s.fused.iteration_launches()
         if dispatch == "dual":
-            assert got == ["gfc_closure_kernel<dual>", "pass12_kernel<dual>"]
+            assert got == [f"{gfc}<dual>", "pass12_kernel<dual>"]
         else:
             bodies = ["spec", "general"] if spec else ["general"]
-            assert got == ([f"gfc_closure_kernel<{b}>" for b in bodies]
+            assert got == ([f"{gfc}<{b}>" for b in bodies]
                            + [f"pass12_kernel<{b}>" for b in bodies])
     with pytest.raises(NotImplementedError, match="staged"):
         s.fused.launch_gfc("staged", None, None, None, None, None, None)

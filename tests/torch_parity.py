@@ -251,11 +251,14 @@ def check_kernel_cycles(name, K, tols):
     dt_used to rtol ``tols[c]``, beta by beta_err where the equation is
     above 1e-4 of its scale, the unstable and dt_overrun rows exactly."""
     from openhyperflow2d_torch.core.state import state_from_numpy
+    from openhyperflow2d_torch.ops.fused_step import (CLOSURE_FORMS,
+                                                      closure_form)
     from openhyperflow2d_torch.solver.runner import Solver
     jc, cycles = pallas_closure_cycles(name, K)
     ts = Solver(port_case(jc), device="cpu", use_kernels=True, fuse_iters=K)
     assert ts.fused.closure
-    assert ts.fused.iteration_launches()[0].startswith("gfc_closure_kernel")
+    assert ts.fused.iteration_launches()[0].startswith(
+        CLOSURE_FORMS[closure_form(ts.params)])
     for c, (want, wd) in enumerate(cycles):
         if c:
             ts.state = state_from_numpy(cycles[c - 1][0])
