@@ -558,20 +558,21 @@ const void* hf2d_closure_kernel_fn(int stage, int body);
 // gfc_closure_ext, 7 gfc_euler_ext, 8 pass12_ext (the all-features form),
 // 9 pass12_axi (the axisymmetric-only form), 10 gfc_axi (gfc's
 // axisymmetric-only form) (hf2d_ext_kernel_fn); the moving-wall forms 11
-// gfc_mw, 12 gfc_closure_mw, 13 gfc_euler_mw, 14 pass12_mw
-// (hf2d_mw_kernel_fn).
+// gfc_mw, 12 gfc_closure_mw, 13 gfc_euler_mw, 14 pass12_mw, 19
+// pass12_mw_flat (hf2d_mw_kernel_fn).
 int hf2d_kernel_info(int kernel, int* out) {
     const void* fn = nullptr;
     const int stage = kernel / 8, body = kernel % 8;
     size_t dyn = 0;
     int ctas = 0, per_sm = 0, err = 0;
-    if (stage > 18 || (stage < 2 && body > BODY_STAGED)
+    if (stage > 19 || (stage < 2 && body > BODY_STAGED)
         || (stage == 3 && body != BODY_GENERAL && body != BODY_DUAL))
         return static_cast<int>(cudaErrorInvalidValue);
     if (stage >= 4) {
-        fn = stage == 4 || stage >= 15 ? hf2d_closure_kernel_fn(stage, body)
-           : stage >= 11               ? hf2d_mw_kernel_fn(stage, body)
-                                       : hf2d_ext_kernel_fn(stage, body);
+        fn = stage == 4 || (stage >= 15 && stage <= 18)
+                 ? hf2d_closure_kernel_fn(stage, body)
+           : stage >= 11 ? hf2d_mw_kernel_fn(stage, body)
+                         : hf2d_ext_kernel_fn(stage, body);
         if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     } else if (stage < 2 && body == BODY_STAGED) {
         const WindowKernel& k = stage == 0 ? GFC_WINDOW : PASS12_WINDOW;

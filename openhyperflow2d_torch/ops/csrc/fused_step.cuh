@@ -78,7 +78,9 @@ struct ExtConsts : ClosureConsts {
                            // CT_NONREFLECTED nodes (the same bodies)
     float nrbc_beta0;      // float(nrbc_beta0)
     int wall_src;          // moving-wall sources (isSrcAdd): the entries
-                           // launch the XF_MW forms (fused_step_mw.cu)
+                           // launch the moving-wall forms (XF_MW, and
+                           // pass12's XF_MW_FLAT where mw_flat;
+                           // fused_step_mw.cu)
 };
 static_assert(sizeof(ExtConsts) == sizeof(ClosureConsts) + 7 * 4,
               "ExtConsts is ClosureConsts and its fields, unpadded");
@@ -101,29 +103,60 @@ struct ExtIn {
 // forms (none), the axisymmetric-only form (axisymmetry and nothing else:
 // no source, d2 or NRBC code; pass12 also takes no collapse of the node's
 // own), the all-features form, which tests each of c.axi, c.src, c.d2x,
-// c.d2y and c.nrbc at run time, and the moving-wall form: the
-// all-features form with the moving-wall sources (isSrcAdd; gfc writes
-// their six planes SCR_MW.. at no-slip wall nodes, pass12 adds them
-// there), which only a deck with c.wall_src launches.
+// c.d2y and c.nrbc at run time, and the two moving-wall forms (isSrcAdd;
+// gfc writes their six planes SCR_MW.. at no-slip wall nodes, pass12 adds
+// them there), which only a deck with c.wall_src launches: the
+// all-features form with the moving-wall sources (XF_MW), and pass12's
+// flat form with them (XF_MW_FLAT: the flat node code, no axisymmetric,
+// source, d2 or NRBC code, for a deck whose one extended feature is
+// c.wall_src, mw_flat).
 constexpr int XF_FLAT = 0;
 constexpr int XF_AXI = 1;
 constexpr int XF_ALL = 2;
 constexpr int XF_MW = 3;
+constexpr int XF_MW_FLAT = 4;
 
-// c.axi / c.src of a feature form: read in the extended forms, false in
-// the flat forms (whose constants have no such fields); c.src is false in
-// the axisymmetric-only form.  gfc's axisymmetric-only form still reads
-// c.axi (one uniform predicate): with the axisymmetric terms compiled in
-// unconditionally, nvcc contracted the dilatation's and the hoop stress's
-// terms otherwise (A[1], A[3], B[2] and F[2] moved by up to 2e-6 at a few
-// thousand nodes of the combustor) and ran no faster on an H100.
+// The feature forms that carry the axisymmetric code (y_r, the V / r and
+// U / r terms, F), the run-time feature tests of the all-features form,
+// and the moving-wall sources.
+template <int XF>
+__host__ __device__ constexpr bool has_axi_code() {
+    return XF == XF_AXI || XF == XF_ALL || XF == XF_MW;
+}
+template <int XF>
+__host__ __device__ constexpr bool has_all_features() {
+    return XF == XF_ALL || XF == XF_MW;
+}
+template <int XF>
+__host__ __device__ constexpr bool has_mw() {
+    return XF == XF_MW || XF == XF_MW_FLAT;
+}
+
+// A moving-wall deck whose one extended feature is the moving-wall
+// sources: its pass12 general and dual launches run the XF_MW_FLAT form
+// (gfc and the spec launches keep the XF_MW and the all-features forms);
+// ops/fused_step.py mw_flat mirrors it.
+template <class C>
+__host__ __device__ inline bool mw_flat(const C& c) {
+    return c.wall_src && !c.axi && !c.src && !c.d2x && !c.d2y && !c.nrbc;
+}
+
+// c.axi / c.src of a feature form: read in the forms that carry their
+// code, false in the others (the flat forms' constants have no such
+// fields); c.src is false in the axisymmetric-only form.  gfc's
+// axisymmetric-only form still reads c.axi (one uniform predicate): with
+// the axisymmetric terms compiled in unconditionally, nvcc contracted the
+// dilatation's and the hoop stress's terms otherwise (A[1], A[3], B[2] and
+// F[2] moved by up to 2e-6 at a few thousand nodes of the combustor) and
+// ran no faster on an H100.
 template <int XF, class C>
 __device__ __forceinline__ bool ext_axi(const C& c) {
-    if constexpr (XF != XF_FLAT) return c.axi != 0; else return false;
+    if constexpr (has_axi_code<XF>()) return c.axi != 0; else return false;
 }
 template <int XF, class C>
 __device__ __forceinline__ bool ext_src(const C& c) {
-    if constexpr (XF >= XF_ALL) return c.src != 0; else return false;
+    if constexpr (has_all_features<XF>()) return c.src != 0;
+    else return false;
 }
 
 // kernel bodies (ops/fused_step.py _BODY_CODE): GENERAL is the general
@@ -870,6 +903,7 @@ __device__ __forceinline__ void gfc_node(
         const int32_t* __restrict__ chemi,
         float dt, float cfl_scen, bool mu_t_iter, bool& uns, bool& ovr,
         const ExtIn& ext = ExtIn{}) {
+    static_assert(XF != XF_MW_FLAT, "a feature form of gfc");
     const size_t P = src.P;
     const size_t n = src.n;
     auto ld = [&](int plane, int d) { return src.at(plane, d); };
@@ -1448,8 +1482,9 @@ __device__ __forceinline__ constexpr int mw_slot(int e) {
     return e < 3 ? e : e - 1;
 }
 
-// XF: the extended forms (ExtConsts) of XF_AXI, XF_ALL or XF_MW (XF_ALL
-// and the moving-wall sources at no-slip wall nodes).  XF_ALL: d2
+// XF: the extended forms (ExtConsts) of XF_AXI, XF_ALL, XF_MW (XF_ALL
+// and the moving-wall sources at no-slip wall nodes) or XF_MW_FLAT (the
+// flat form and the moving-wall sources).  XF_ALL: d2
 // averaging of the flux differences where dx2/dy2 is set and the per-node
 // NRBC beta_min (general and dual bodies only: no spec tile holds such a
 // node), F / (j + 1) of an axisymmetric deck and Src dt of a deck with
@@ -1463,21 +1498,22 @@ __device__ __forceinline__ void pass12_node(
         float beta_scen, bool own, bool store, const Heat& heat, Acc& acc,
         const ExtIn& ext = ExtIn{}) {
     static_assert(XF == XF_FLAT || XF == XF_AXI || XF == XF_ALL
-                  || XF == XF_MW, "a feature form of pass12");
+                  || XF == XF_MW || XF == XF_MW_FLAT,
+                  "a feature form of pass12");
     const size_t P = src.P;
     const size_t n = src.n;
     const float dtdx = dt / c.dx;
     const float dtdy = dt / c.dy;
     float bm = fminf(c.beta0, beta_scen);
     Collapse kc{false, false, false, false};   // XF_ALL: the node's collapse
-    if constexpr (XF >= XF_ALL && !SPEC) {
+    if constexpr (has_all_features<XF>() && !SPEC) {
         if (c.nrbc && ctx_bit(w, CTX_NRBC)) bm = c.nrbc_beta0;
         kc = collapse<false>(c, w, ext.i, ext.j);
     }
     // j + 1 and its one reciprocal (div_jp1)
-    const float jp1 = XF != XF_FLAT ? static_cast<float>(ext.j) + F(1.0)
-                                    : 0.f;
-    const float rj = XF != XF_FLAT ? __frcp_rn(jp1) : 0.f;
+    const float jp1 = has_axi_code<XF>()
+        ? static_cast<float>(ext.j) + F(1.0) : 0.f;
+    const float rj = has_axi_code<XF>() ? __frcp_rn(jp1) : 0.f;
     // the general body takes the energy equation first, so that the heat
     // source's live values end before any partial is held (the equations
     // are independent: the order moves no bit)
@@ -1506,7 +1542,7 @@ __device__ __forceinline__ void pass12_node(
         float dXX = dSdx, y_term = dSdy;
         if constexpr (XF == XF_AXI)
             y_term = y_term + div_jp1(radial_flux(src, e), jp1, rj);
-        if constexpr (XF >= XF_ALL) {
+        if constexpr (has_all_features<XF>()) {
             if constexpr (!SPEC) {
                 if (c.d2x && ctx_bit(w, CTX_DX2 + e)) {
                     const float l = kc.l ? nb_flux_x(c, ext, P, ext.i - 1,
@@ -1530,7 +1566,7 @@ __device__ __forceinline__ void pass12_node(
         float next = S_eff * beta + (F(1.0) - beta) * blend
                      - (dtdx * dXX + dtdy * y_term) + sk * dt;
         if (!SPEC && c.heat && e == 3) next = next + heat();   // + SrcAdd
-        if constexpr (XF == XF_MW && !SPEC) {
+        if constexpr (has_mw<XF>() && !SPEC) {
             // + SrcAdd of the moving wall (no spec tile holds a wall node)
             if (e != 3 && e < 7 && MASK(WALL_NS, false))
                 next = next + src.at(SCR_MW + mw_slot(e), NB_C);
@@ -1791,8 +1827,10 @@ __device__ __forceinline__ void gfc_tile(
 // body at 64 registers and 4 CTAs an SM and 15% faster).  WarpAcc needs
 // every lane of the warp in each shuffle, so there a lane past the grid's
 // edge runs the body at the grid's last row and column, stores nothing
-// and counts nothing.  The flat spec and general bodies keep all 27
-// partials of a node to the end of the tile (ArrayAcc).
+// and counts nothing.  The flat spec and general bodies, and the flat
+// moving-wall general body, keep all 27 partials of a node to the end of
+// the tile (ArrayAcc); in the last, WarpAcc ran 1.06x as long on an H100
+// (PERF.md).
 template <int BODY, int XF = XF_FLAT, class C>
 __device__ __forceinline__ void pass12_tile(
         const C& c, const float* __restrict__ cin, float* __restrict__ cout,
@@ -1806,7 +1844,8 @@ __device__ __forceinline__ void pass12_tile(
     const int j = (tile % c.nby) * TILE_Y + threadIdx.x;
     const bool inside = i < c.X && j < c.Y;
     const bool own = inside && i >= c.x0 && i < c.x1;
-    if constexpr (BODY == BODY_DUAL || XF != XF_FLAT) {
+    if constexpr (BODY == BODY_DUAL
+                  || (XF != XF_FLAT && XF != XF_MW_FLAT)) {
         WarpAcc acc{red};
         const int ic = min(i, c.X - 1), jc = min(j, c.Y - 1);
         if (spec_tile<BODY>(flags, tile))

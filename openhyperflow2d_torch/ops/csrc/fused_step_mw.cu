@@ -1,17 +1,23 @@
 // The moving-wall forms of the fused solver iteration for Hopper (sm_90a),
 // float32: the extended forms of fused_step_ext.cu with the moving-wall
-// sources (SolverParams.isSrcAdd) compiled in (XF_MW of fused_step.cuh):
+// sources (SolverParams.isSrcAdd) compiled in (XF_MW of fused_step.cuh),
+// and pass12's flat form of fused_step.cu with them (XF_MW_FLAT):
 //
 //   gfc_mw_kernel<BODY>          gfc of gfc_ext_kernel /
 //   gfc_closure_mw_kernel<BODY>  gfc_closure_ext_kernel /
 //   gfc_euler_mw_kernel<BODY>    gfc_euler_ext_kernel on a deck with
 //                                moving-wall sources
 //   pass12_mw_kernel<BODY>       pass12 of pass12_ext_kernel on such a deck
+//   pass12_mw_flat_kernel<BODY>  pass12 of pass12_kernel on a deck whose
+//                                one extended feature is the moving-wall
+//                                sources (mw_flat)
 //
 // BODY is the general or the dual body: no spec tile holds a wall node,
 // and in a spec body the moving-wall code compiles away, so a moving-wall
 // deck's spec tiles run the all-features forms' spec bodies
-// (fused_step_ext.cu, whose entries route them there).
+// (fused_step_ext.cu, whose entries route them there).  Every gfc runs
+// its moving-wall form on every moving-wall deck of its family, whatever
+// its other features.
 //
 // They replace the same TPU kernel as the other forms
 // (openhyperflow2d_tpu/ops/pallas_step.py _machinery.make_fused, general
@@ -30,13 +36,22 @@
 // source of the energy equation.  The terms are node-local: no new halo.
 // The kernel path runs uniform meshes only (the node's dx and dy are the
 // deck's).  Every other feature is the all-features form's, tested at run
-// time (axisymmetry, sources, d2*-NULL, NRBC).  A translation unit of its
-// own: the forms the other decks launch keep their code, and nvcc builds
-// it beside the other two.
+// time (axisymmetry, sources, d2*-NULL, NRBC) in the XF_MW forms.
+// pass12's XF_MW_FLAT form carries none of that: no axisymmetric, source,
+// d2 or NRBC code, no collapse of its own node, no j + 1 or its
+// reciprocal, no reads of the neighbours' ctx words or scratch; it takes
+// the flat kernels' Consts.  pass12_mw pays for those features on the
+// decks that use none of them (the combustor, the cylinders, a free-wall
+// channel): its general launch over one wave of tiles took about 2.5x the
+// flat pass12 chain's time on an H100 (PERF.md).  gfc keeps its
+// all-features moving-wall form there: a flat one ran no faster (PERF.md).
+// A translation unit of its own: the forms the other decks launch keep
+// their code, and nvcc builds it beside the others.
 //
-// What bounds them on an H100: the all-features forms' traffic plus 24
-// bytes a no-slip wall node for gfc's write and 24 for pass12's read.
-// PERF.md keeps their times.
+// What bounds them on an H100: their forms' traffic (the all-features
+// forms', or the flat pass12's for XF_MW_FLAT) plus 24 bytes a no-slip
+// wall node for gfc's write and 24 for pass12's read.  PERF.md keeps their
+// times.
 #include "fused_step.cuh"
 
 // each at 3 CTAs an SM, as its all-features form
@@ -82,10 +97,31 @@ pass12_mw_kernel(const ExtConsts c, const float* __restrict__ cin,
                              flags, part_f, red, srcp);
 }
 
+// The general body keeps all 27 partials of a node to the end of the tile
+// (ArrayAcc, pass12_tile), as the flat general body: with WarpAcc (no
+// spill, against 16 B spilled) it ran 1.06x as long on an H100 (PERF.md).
+template <int BODY>
+__global__ void __launch_bounds__(CTA_THREADS, 3)
+pass12_mw_flat_kernel(const Consts c, const float* __restrict__ cin,
+                      float* __restrict__ cout,
+                      const float* __restrict__ scr,
+                      const int8_t* __restrict__ idn,
+                      const int32_t* __restrict__ ctxw,
+                      const float* __restrict__ dtp,
+                      const float* __restrict__ aux,
+                      const int32_t* __restrict__ tiles,
+                      const int32_t* __restrict__ flags,
+                      float* __restrict__ part_f) {
+    __shared__ float red[TILE_X][NQ];
+    pass12_tile<BODY, XF_MW_FLAT>(
+        c, cin, cout, scr, idn, ctxw, dtp, aux, tiles, flags, part_f, red);
+}
+
 // ---------------------------------------------------------------------------
 // Entries: hf2d_gfc_ext / hf2d_pass12_ext (fused_step_ext.cu) hand the
 // general and dual launches of a deck with ExtConsts::wall_src to these,
-// with their own arguments.
+// with their own arguments; pass12's launches the flat form where mw_flat
+// takes the deck, else the all-features one.
 // ---------------------------------------------------------------------------
 extern "C" {
 
@@ -152,7 +188,22 @@ int hf2d_pass12_mw(int body, const void* consts, const void* cin,
         static_cast<const float*>(aux), static_cast<const int32_t*>(tiles), \
         static_cast<const int32_t*>(flags), static_cast<float*>(part_f),    \
         static_cast<const float*>(src)
+#define HF2D_PASS12_MW_FLAT_ARGS                                             \
+    static_cast<const Consts&>(c), static_cast<const float*>(cin),          \
+        static_cast<float*>(cout), static_cast<const float*>(scr),          \
+        static_cast<const int8_t*>(idn), static_cast<const int32_t*>(ctxw), \
+        static_cast<const float*>(dt), static_cast<const float*>(aux),      \
+        static_cast<const int32_t*>(tiles),                                 \
+        static_cast<const int32_t*>(flags), static_cast<float*>(part_f)
     if (!c.wall_src)
+        return static_cast<int>(cudaErrorInvalidValue);
+    else if (mw_flat(c) && body == BODY_GENERAL)
+        pass12_mw_flat_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
+            HF2D_PASS12_MW_FLAT_ARGS);
+    else if (mw_flat(c) && body == BODY_DUAL)
+        pass12_mw_flat_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(
+            HF2D_PASS12_MW_FLAT_ARGS);
+    else if (mw_flat(c))
         return static_cast<int>(cudaErrorInvalidValue);
     else if (body == BODY_GENERAL)
         pass12_mw_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
@@ -163,12 +214,13 @@ int hf2d_pass12_mw(int body, const void* consts, const void* cin,
     else
         return static_cast<int>(cudaErrorInvalidValue);
 #undef HF2D_PASS12_MW_ARGS
+#undef HF2D_PASS12_MW_FLAT_ARGS
     return static_cast<int>(cudaGetLastError());
 }
 
-// The kernel of stage 11 (gfc_mw), 12 (gfc_closure_mw), 13 (gfc_euler_mw)
-// or 14 (pass12_mw) and body (BODY_GENERAL or BODY_DUAL), for
-// fused_step.cu's hf2d_kernel_info; null for any other.
+// The kernel of stage 11 (gfc_mw), 12 (gfc_closure_mw), 13 (gfc_euler_mw),
+// 14 (pass12_mw) or 19 (pass12_mw_flat) and body (BODY_GENERAL or
+// BODY_DUAL), for fused_step.cu's hf2d_kernel_info; null for any other.
 const void* hf2d_mw_kernel_fn(int stage, int body) {
     if (body != BODY_GENERAL && body != BODY_DUAL) return nullptr;
     const bool dual = body == BODY_DUAL;
@@ -185,6 +237,9 @@ const void* hf2d_mw_kernel_fn(int stage, int body) {
         case 14:
             return dual ? (const void*)pass12_mw_kernel<BODY_DUAL>
                         : (const void*)pass12_mw_kernel<BODY_GENERAL>;
+        case 19:
+            return dual ? (const void*)pass12_mw_flat_kernel<BODY_DUAL>
+                        : (const void*)pass12_mw_flat_kernel<BODY_GENERAL>;
         default:
             return nullptr;
     }

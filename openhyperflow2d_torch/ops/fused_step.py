@@ -58,9 +58,13 @@ moving-wall sources (``isSrcAdd``) runs the moving-wall forms of every
 family (csrc/fused_step_mw.cu) on its general and dual launches: gfc
 writes the SrcAdd of the equations MW_EQ at its no-slip wall nodes into
 scratch planes SCR_MW.., pass12 adds them there, beside the folded heat
-source of rhoE.  No spec tile holds a wall node, so its spec launches
-run the all-features forms' spec bodies (``*_ext_kernel<spec>``).  The
-kernel path runs uniform meshes only, as JAX's Pallas path does.
+source of rhoE.  Where the moving-wall sources are the deck's one
+extended feature (``mw_flat``), pass12 runs its flat moving-wall form
+(``pass12_mw_flat_kernel``: the flat node code and the sources), else
+the all-features one.  No spec tile holds a wall node, so its spec
+launches run the all-features forms' spec bodies
+(``*_ext_kernel<spec>``).  The kernel path runs uniform meshes only, as
+JAX's Pallas path does.
 
 The loop reads nothing back to the host and copies nothing to the device:
 dt and the per-iteration scalars stay on the device, in the working dtype,
@@ -159,11 +163,13 @@ CLOSURE_KERNEL_NAMES = tuple(
 # d2*-NULL soft BCs and NRBC): kernels of their own, so the flat,
 # sourceless decks keep their symbols and code (``gfc_ext``,
 # ``pass12_ext``); gfc (standard k-eps) and pass12 in two feature forms
-# each (``gfc_form``, ``pass12_form``)
+# each (``gfc_form``, ``pass12_form``), and in a moving-wall form (pass12:
+# two)
 GFC_FORMS = {"axi": "gfc_axi_kernel", "all": "gfc_ext_kernel",
              "mw": "gfc_mw_kernel"}
 PASS12_FORMS = {"axi": "pass12_axi_kernel", "all": "pass12_ext_kernel",
-                "mw": "pass12_mw_kernel"}
+                "mw": "pass12_mw_kernel",
+                "mw_flat": "pass12_mw_flat_kernel"}
 EXT_KERNEL_NAMES = tuple(
     f"{GFC_FORMS[form]}<{body}>" for form in ("axi", "all")
     for body in ("spec", "general", "dual")) + (
@@ -174,12 +180,14 @@ EXT_KERNEL_NAMES = tuple(
     for body in ("spec", "general", "dual"))
 # the moving-wall forms (csrc/fused_step_mw.cu): every deck with isSrcAdd,
 # whatever its other features, runs these on its general and dual launches
-# (its spec launches: the all-features forms' spec bodies)
+# (pass12's flat one where ``mw_flat`` takes it; its spec launches: the
+# all-features forms' spec bodies)
 MW_KERNEL_NAMES = tuple(
     f"{kernel}<{body}>" for kernel in ("gfc_mw_kernel",
                                        "gfc_closure_mw_kernel",
                                        "gfc_euler_mw_kernel",
-                                       "pass12_mw_kernel")
+                                       "pass12_mw_kernel",
+                                       "pass12_mw_flat_kernel")
     for body in ("general", "dual"))
 PATH_KERNEL_NAMES = (NS_KERNEL_NAMES + EULER_KERNEL_NAMES
                      + CLOSURE_KERNEL_NAMES + EXT_KERNEL_NAMES
@@ -265,19 +273,28 @@ def _ext_features(p) -> dict:
             "nrbc": bool(p.has_nrbc)}
 
 
+def mw_flat(params) -> bool:
+    """A moving-wall deck (isSrcAdd) with no other extended feature: its
+    pass12 general and dual launches run the flat moving-wall form, as
+    the C entry decides from ExtConsts (csrc/fused_step.cuh mw_flat)."""
+    return bool(params.isSrcAdd) and not any(_ext_features(params).values())
+
+
 def pass12_form(params) -> str:
     """The feature form of pass12's extended kernel a deck runs (a key of
     PASS12_FORMS), as the C entry hf2d_pass12_ext picks it from the same
     flags: "axi" (``pass12_axi_kernel``, F / (j + 1) and no other
     feature's code) where axisymmetry is the deck's one extended feature,
     "all" (``pass12_ext_kernel``, each feature tested at run time) where it
-    has sources, d2*-NULL soft BCs or NRBC, "mw" (``pass12_mw_kernel``,
-    the all-features form and the moving-wall sources; its spec launches
-    run "all", FusedStep.pass12_name) where it has moving-wall sources.
-    Raises for a deck with none (it runs the flat ``pass12_kernel``)."""
+    has sources, d2*-NULL soft BCs or NRBC; on a deck with moving-wall
+    sources "mw_flat" (``pass12_mw_flat_kernel``, the flat form and the
+    sources) where they are its one extended feature (``mw_flat``), else
+    "mw" (``pass12_mw_kernel``, the all-features form and the sources);
+    the spec launches of either run "all" (FusedStep.pass12_name).  Raises
+    for a deck with none (it runs the flat ``pass12_kernel``)."""
     f = _ext_features(params)
     if params.isSrcAdd:
-        return "mw"
+        return "mw_flat" if mw_flat(params) else "mw"
     if f["src"] or f["d2x"] or f["d2y"] or f["nrbc"]:
         return "all"
     if f["axi"]:
@@ -864,8 +881,8 @@ class FusedStep:
         gfc_name's on a moving-wall deck's spec launch)."""
         if not self.pass12_ext:
             return f"pass12_kernel<{body}>"
-        form = ("all" if self.pass12_form == "mw" and body == "spec"
-                else self.pass12_form)
+        form = ("all" if self.pass12_form in ("mw", "mw_flat")
+                and body == "spec" else self.pass12_form)
         return f"{PASS12_FORMS[form]}<{body}>"
 
     def iteration_launches(self) -> list:

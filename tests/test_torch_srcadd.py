@@ -11,7 +11,9 @@ the host grid, on the wall channel of tests/test_turbulence_models.py
 sources act at the initial fill, then are the rounding of (U rho)/rho - Uw)
 with Uw = 10, and a free no-slip wall (CT_WALL_NO_SLIP_2D without U/V
 const, so rhoU evolves and the sources act every iteration) with Uw = 0;
-and an Euler channel with an NT_WNS_2D wall.  Float64, JAX on the CPU.
+an Euler channel with an NT_WNS_2D wall, and the free-wall channel with
+FlowType=1 (axisymmetric: the all-features moving-wall forms).  Float64,
+JAX on the CPU.
 
 * the eager path against JAX's XLA path at 1e-10 of each plane's scale
   (SrcAdd among the fields), also on a non-uniform mesh whose dx and dy
@@ -20,16 +22,20 @@ and an Euler channel with an NT_WNS_2D wall.  Float64, JAX on the CPU.
   planes SCR_MW.., pass12_plain adds them) against JAX's
   ``make_pallas_chunk`` in interpret mode at K = 1 and 2;
 * the plain strips bit for bit the single domain;
-* form choice: every isSrcAdd deck runs the moving-wall forms
-  (gfc_mw_kernel, gfc_closure_mw_kernel or
-  gfc_euler_mw_kernel, and pass12_mw_kernel) on its general and dual
-  launches whatever its other features, and the all-features forms' spec
-  bodies on its spec tiles (which hold no wall node); the decks of the
-  timed 2048^2 cells run the forms they ran before.
+* form choice: every isSrcAdd deck runs the moving-wall forms on its
+  general and dual launches whatever its other features (gfc_mw_kernel,
+  gfc_closure_mw_kernel or gfc_euler_mw_kernel; pass12's flat one,
+  pass12_mw_flat_kernel, where the moving-wall sources are its one
+  extended feature, mw_flat, else pass12_mw_kernel), and the all-features
+  forms' spec bodies on its spec tiles (which hold no wall node).  The
+  decks of the timed 2048^2 cells run the forms they ran before.
 """
 
 import dataclasses
 import functools
+import importlib.util
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -40,30 +46,42 @@ from openhyperflow2d_torch import examples as ex
 from openhyperflow2d_torch.core import flags as fl
 from openhyperflow2d_torch.ops.fused_step import (EXT_KERNEL_NAMES, MW_EQ,
                                                   MW_KERNEL_NAMES,
-                                                  N_SCRATCH_MW, n_scratch)
+                                                  N_SCRATCH, N_SCRATCH_AXI,
+                                                  N_SCRATCH_MW,
+                                                  _ext_features, gfc_form,
+                                                  mw_flat, n_scratch,
+                                                  pass12_form)
 from openhyperflow2d_torch.parallel.comm import LocalComm
 from openhyperflow2d_torch.solver.init import build_case
 from openhyperflow2d_torch.solver.runner import Solver
 
 FREE_WALL = "CT_NODE_IS_SET_2D, CT_WALL_NO_SLIP_2D"
+CSRC = Path(__file__).resolve().parents[1] / "openhyperflow2d_torch" / \
+    "ops" / "csrc"
 
 
-def assert_mw_forms(names, gfc_kernel=None):
+def assert_mw_forms(names, params, gfc_kernel=None):
     """Every general and dual launch of ``names`` a moving-wall form
-    (``gfc_kernel`` or pass12_mw_kernel, where given), every spec launch
-    the all-features form's spec body."""
+    (``gfc_kernel`` where given; pass12's flat form where ``mw_flat``
+    takes the deck of ``params``, else its all-features form), every spec
+    launch an all-features form's spec body (``gfc_kernel``'s where
+    given)."""
     assert names
+    pass12 = ("pass12_mw_flat_kernel" if mw_flat(params)
+              else "pass12_mw_kernel")
     for n in names:
         kernel, body = n[:-1].split("<")
         if body == "spec":
-            assert n in EXT_KERNEL_NAMES and kernel.endswith("_ext_kernel"), n
+            assert n in EXT_KERNEL_NAMES, n
+            assert kernel.endswith("_ext_kernel"), n
             if gfc_kernel is not None:
                 assert kernel in (gfc_kernel.replace("_mw_", "_ext_"),
                                   "pass12_ext_kernel"), n
         else:
             assert n in MW_KERNEL_NAMES, n
+            assert kernel.startswith("gfc_") or kernel == pass12, n
             if gfc_kernel is not None:
-                assert kernel in (gfc_kernel, "pass12_mw_kernel"), n
+                assert kernel in (gfc_kernel, pass12), n
 
 
 def jax_deck(name):
@@ -74,12 +92,15 @@ def jax_deck(name):
         d.data["Contour1.Bound3.Cond"] = "NT_WNS_2D"
         return d
     d = jax_wall_channel("realisable")        # standard k-eps constants
-    if name == "keps_free":
+    if name.startswith("keps_free"):
         d.data["Contour1.Bound3.Cond"] = FREE_WALL
+    if name.endswith("_axisym"):
+        d.data["FlowType"] = "1"
     return d
 
 
-UW = {"keps_wns": 10.0, "keps_free": 0.0, "euler": 10.0}
+UW = {"keps_wns": 10.0, "keps_free": 0.0, "euler": 10.0,
+      "keps_free_axisym": 0.0}
 
 
 def jax_mw_case(name, dx_map=None, dy_map=None):
@@ -157,17 +178,20 @@ def pallas_cycle(name, K, n=3):
 
 
 @pytest.mark.parametrize("name, K", [("keps_free", 1), ("keps_free", 2),
-                                     ("keps_wns", 2), ("euler", 1)])
+                                     ("keps_wns", 2), ("euler", 1),
+                                     ("keps_free_axisym", 1)])
 def test_kernel_plain_matches_pallas(name, K):
-    """The kernel path's plain versions (the moving-wall forms' names)
-    against make_pallas_chunk in interpret mode: every field to 1e-10 of
-    its plane's scale, RMS and dt_used to rtol 1e-10, beta where the
-    equation is above 1e-4 of its scale, the Tg<0 and overrun rows
-    exactly."""
+    """The kernel path's plain versions (the moving-wall forms' names:
+    the flat ones on the flat decks, the all-features ones on the
+    axisymmetric channel) against make_pallas_chunk in interpret mode:
+    every field to 1e-10 of its plane's scale, RMS and dt_used to rtol
+    1e-10, beta where the equation is above 1e-4 of its scale, the Tg<0
+    and overrun rows exactly."""
     jc, want, wd = pallas_cycle(name, K)
     ts = Solver(port_case(jc), device="cpu", use_kernels=True, fuse_iters=K)
     launches = ts.fused.iteration_launches()
-    assert_mw_forms(launches)
+    assert_mw_forms(launches, ts.params)
+    assert mw_flat(ts.params) == (not name.endswith("_axisym"))
     gd, _ = ts.run_cycle()
     got = ts.host_state()
     errs = {f: scaled_err(want, got, f) for f in KERNEL_FIELDS}
@@ -227,8 +251,9 @@ def _decks():
 
 
 # what the decks of the timed 2048^2 cells launch (gfc, pass12) without
-# moving-wall sources, as before this form existed; with them, the
-# moving-wall forms
+# moving-wall sources, as before the moving-wall forms existed; with them,
+# the moving-wall forms: pass12's flat one where the sources are the
+# deck's one extended feature
 BEFORE = {"combustor": ("gfc_kernel", "pass12_kernel"),
           "step_heat": ("gfc_kernel", "pass12_kernel"),
           "cylinders": ("gfc_euler_kernel", "pass12_kernel"),
@@ -236,8 +261,13 @@ BEFORE = {"combustor": ("gfc_kernel", "pass12_kernel"),
           "combustor_axisym": ("gfc_axi_kernel", "pass12_axi_kernel"),
           "bubble_axisym": ("gfc_euler_ext_kernel", "pass12_axi_kernel"),
           "scramjet": ("gfc_ext_kernel", "pass12_ext_kernel")}
-WITH_MW = {"cylinders": "gfc_euler_mw_kernel", "rng": "gfc_closure_mw_kernel",
-           "bubble_axisym": "gfc_euler_mw_kernel"}
+WITH_MW = {"combustor": ("gfc_mw_kernel", "pass12_mw_flat_kernel"),
+           "step_heat": ("gfc_mw_kernel", "pass12_mw_flat_kernel"),
+           "cylinders": ("gfc_euler_mw_kernel", "pass12_mw_flat_kernel"),
+           "rng": ("gfc_closure_mw_kernel", "pass12_mw_flat_kernel"),
+           "combustor_axisym": ("gfc_mw_kernel", "pass12_mw_kernel"),
+           "bubble_axisym": ("gfc_euler_mw_kernel", "pass12_mw_kernel"),
+           "scramjet": ("gfc_mw_kernel", "pass12_mw_kernel")}
 
 
 @functools.lru_cache(maxsize=None)
@@ -261,11 +291,107 @@ def test_forms_with_and_without_moving_walls(kind):
         names
     mw = dataclasses.replace(case, params=dataclasses.replace(
         case.params, isSrcAdd=True))
-    names = Solver(mw, device="cpu", use_kernels=True).fused \
-        .iteration_launches()
-    gfc_mw = WITH_MW.get(kind, "gfc_mw_kernel")
-    assert_mw_forms(names, gfc_mw)
+    step = Solver(mw, device="cpu", use_kernels=True).fused
+    names = step.iteration_launches()
+    gfc_mw, p12_mw = WITH_MW[kind]
+    assert_mw_forms(names, mw.params, gfc_mw)
+    for body in ("general", "dual"):
+        assert step.gfc_name(body) == f"{gfc_mw}<{body}>"
+        assert step.pass12_name(body) == f"{p12_mw}<{body}>"
+    if not step.euler:
+        assert step.gfc_name("spec") == \
+            f"{gfc_mw.replace('_mw_', '_ext_')}<spec>"
+        assert step.pass12_name("spec") == "pass12_ext_kernel<spec>"
     dual = Solver(mw, device="cpu", use_kernels=True, dispatch="dual") \
         .fused.iteration_launches()
-    assert dual == [f"{gfc_mw}<dual>", "pass12_mw_kernel<dual>"], dual
+    assert dual == [f"{gfc_mw}<dual>", f"{p12_mw}<dual>"], dual
     assert n_scratch(mw.params) == N_SCRATCH_MW
+
+
+@pytest.mark.parametrize("kind", list(BEFORE))
+@pytest.mark.parametrize("src_add", [False, True])
+def test_mw_flat_form_exactly_where_no_other_feature(kind, src_add):
+    """pass12_form gives "mw_flat" exactly where the deck has moving-wall
+    sources and none of the other extended features, "mw" where it has
+    both, gfc_form "mw" on either, and n_scratch the planes of each: 31
+    on a flat deck, 40 on an axisymmetric one, 46 with moving-wall
+    sources."""
+    case = form_case(kind)
+    p = dataclasses.replace(case.params, isSrcAdd=src_add)
+    plain = not any(_ext_features(p).values())
+    assert mw_flat(p) == (src_add and plain)
+    if src_add:
+        assert pass12_form(p) == ("mw_flat" if plain else "mw")
+        assert gfc_form(p) == "mw"
+        assert n_scratch(p) == N_SCRATCH_MW
+    else:
+        assert n_scratch(p) == (N_SCRATCH_AXI
+                                if p.ft == fl.FT_AXISYMMETRIC else N_SCRATCH)
+        if plain:
+            with pytest.raises(ValueError, match="no extended form"):
+                gfc_form(p)
+            with pytest.raises(ValueError, match="no extended form"):
+                pass12_form(p)
+        else:
+            assert pass12_form(p) in ("axi", "all")
+
+
+@functools.lru_cache(maxsize=None)
+def chip_smoke():
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  root / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_one_picking_rule_in_c_and_on_the_host():
+    """C's mw_flat (csrc/fused_step.cuh) tests the moving-wall flag and
+    exactly the flags of the host's _ext_features, each false, as
+    ops/fused_step.mw_flat does (a text check: no nvcc here)."""
+    text = (CSRC / "fused_step.cuh").read_text()
+    body = re.search(r"inline bool mw_flat\(const C& c\) \{\s*return ([^;]*);",
+                     text).group(1)
+    terms = [t.strip() for t in body.split("&&")]
+    assert terms[0] == "c.wall_src"
+    flags = {t.removeprefix("!c.") for t in terms[1:]}
+    assert all(t.startswith("!c.") for t in terms[1:])
+    p = form_case("combustor").params
+    assert flags == set(_ext_features(p))
+
+
+def test_every_mw_form_is_one_instantiation_and_one_query_entry():
+    """Each moving-wall kernel of MW_KERNEL_NAMES is defined once, in
+    fused_step_mw.cu, answers hf2d_kernel_info at chip_smoke.py's stage
+    (general and dual bodies), and chip_smoke.py names its profiler rows
+    and, for mw_ab, a flat deck's launches of either build under one name
+    a stage and body."""
+    text = {f.name: f.read_text() for f in CSRC.glob("*.cu")}
+    mw = text["fused_step_mw.cu"]
+    cs = chip_smoke()
+    entries = {k: int(v) for v, k in re.findall(
+        r"case (\d+):\s*return dual \? \(const void\*\)(\w+)<BODY_DUAL>",
+        mw)}
+    kernels = {n.split("<")[0] for n in MW_KERNEL_NAMES}
+    assert entries == {k: cs._STAGE[k] for k in kernels}
+    assert len(set(cs._STAGE.values())) == len(cs._STAGE)
+    for k in kernels:
+        assert sum(len(re.findall(rf"^{k}\(", t, re.M))
+                   for t in text.values()) == 1, k
+        for code, body in (("0", "general"), ("2", "dual")):
+            row = f"void {k}<{code}>(Consts, float const*, float*)"
+            assert cs.profiled_kernel(row) == f"{k}<{body}>"
+    same = {"gfc<general>": ("gfc_mw_kernel<0>", "gfc_mw_kernel<0>"),
+            "gfc<spec>": ("gfc_ext_kernel<1>", "gfc_ext_kernel<1>"),
+            "pass12<general>": ("pass12_mw_flat_kernel<0>",
+                                "pass12_mw_kernel<0>"),
+            "pass12<dual>": ("pass12_mw_flat_kernel<2>",
+                             "pass12_mw_kernel<2>"),
+            "pass12<spec>": ("pass12_ext_kernel<1>",
+                             "pass12_ext_kernel<1>")}
+    for want, rows in same.items():
+        assert [cs.mw_ab_kernel(f"void {r}(Consts)") for r in rows] == \
+            [want] * 2
+    assert cs.mw_ab_kernel("void gfc_closure_mw_kernel<0>(ExtConsts)") \
+        is None
