@@ -11,9 +11,10 @@ the host grid, on the wall channel of tests/test_turbulence_models.py
 sources act at the initial fill, then are the rounding of (U rho)/rho - Uw)
 with Uw = 10, and a free no-slip wall (CT_WALL_NO_SLIP_2D without U/V
 const, so rhoU evolves and the sources act every iteration) with Uw = 0;
-an Euler channel with an NT_WNS_2D wall, and the free-wall channel with
-FlowType=1 (axisymmetric: the all-features moving-wall forms).  Float64,
-JAX on the CPU.
+an Euler channel with an NT_WNS_2D wall, the free-wall channel with
+FlowType=1 (axisymmetric: the all-features moving-wall forms), and the
+free-wall channel with RNG k-eps and with SA (gfc_closure_mw_kernel, every
+closure family tested at run time).  Float64, JAX on the CPU.
 
 * the eager path against JAX's XLA path at 1e-10 of each plane's scale
   (SrcAdd among the fields), also on a non-uniform mesh whose dx and dy
@@ -91,16 +92,21 @@ def jax_deck(name):
         d = channel_deck(nx=48, ny=40, problem_type=0)
         d.data["Contour1.Bound3.Cond"] = "NT_WNS_2D"
         return d
-    d = jax_wall_channel("realisable")        # standard k-eps constants
-    if name.startswith("keps_free"):
+    # standard k-eps constants, or the closure of a "<closure>_free" deck
+    d = jax_wall_channel(name.removesuffix("_free")
+                         if name in CLOSURE_FREE else "realisable")
+    if name.startswith("keps_free") or name in CLOSURE_FREE:
         d.data["Contour1.Bound3.Cond"] = FREE_WALL
     if name.endswith("_axisym"):
         d.data["FlowType"] = "1"
     return d
 
 
+# the free-wall channel with a closure (RNG: a deck with spec tiles; SA:
+# every tile general)
+CLOSURE_FREE = ("rng_free", "sa_free")
 UW = {"keps_wns": 10.0, "keps_free": 0.0, "euler": 10.0,
-      "keps_free_axisym": 0.0}
+      "keps_free_axisym": 0.0, "rng_free": 0.0, "sa_free": 0.0}
 
 
 def jax_mw_case(name, dx_map=None, dy_map=None):
@@ -142,7 +148,8 @@ def eager_pair(name, nonuniform, n=3):
 
 
 @pytest.mark.parametrize("name, nonuniform", [
-    ("keps_wns", False), ("keps_free", False), ("keps_free", True)])
+    ("keps_wns", False), ("keps_free", False), ("keps_free", True),
+    ("rng_free", False), ("sa_free", False)])
 def test_eager_matches_jax(name, nonuniform):
     """The initial fill (the sources from the initial velocity) and 3
     iterations: every field, SrcAdd included, to 1e-10 of its plane's
@@ -158,7 +165,7 @@ def test_eager_matches_jax(name, nonuniform):
     for key in ("RMS", "dt_used"):
         assert rel_diff(gd[key], wd[key]) < 1e-10, key
     np.testing.assert_array_equal(gd["unstable"], wd["unstable"])
-    if name == "keps_free":
+    if name == "keps_free" or name in CLOSURE_FREE:
         # the free wall's sources act every iteration
         assert np.abs(got["SrcAdd"][list(MW_EQ)]).max() > 0
         assert not gd["unstable"].any()
@@ -179,7 +186,8 @@ def pallas_cycle(name, K, n=3):
 
 @pytest.mark.parametrize("name, K", [("keps_free", 1), ("keps_free", 2),
                                      ("keps_wns", 2), ("euler", 1),
-                                     ("keps_free_axisym", 1)])
+                                     ("keps_free_axisym", 1),
+                                     ("rng_free", 1), ("sa_free", 1)])
 def test_kernel_plain_matches_pallas(name, K):
     """The kernel path's plain versions (the moving-wall forms' names:
     the flat ones on the flat decks, the all-features ones on the
@@ -192,6 +200,8 @@ def test_kernel_plain_matches_pallas(name, K):
     launches = ts.fused.iteration_launches()
     assert_mw_forms(launches, ts.params)
     assert mw_flat(ts.params) == (not name.endswith("_axisym"))
+    if name in CLOSURE_FREE:
+        assert "gfc_closure_mw_kernel<general>" in launches
     gd, _ = ts.run_cycle()
     got = ts.host_state()
     errs = {f: scaled_err(want, got, f) for f in KERNEL_FIELDS}
@@ -306,6 +316,64 @@ def test_forms_with_and_without_moving_walls(kind):
         .fused.iteration_launches()
     assert dual == [f"{gfc_mw}<dual>", f"{p12_mw}<dual>"], dual
     assert n_scratch(mw.params) == N_SCRATCH_MW
+
+
+
+# the closure decks with moving-wall sources (the wall channel of
+# tests/test_turbulence_models.py at 48 x 96, whose k-eps decks have spec
+# tiles): (TurbulenceModel, TurbExtModel, FlowType).  Every one runs
+# gfc_closure_mw_kernel on its general and dual launches, whatever its
+# families and its other features, and the all-features closures' spec
+# body on its spec launches: no deck sets isSrcAdd with a closure, so no
+# closure family has a moving-wall form of its own
+CLOSURE_MW_DECKS = {
+    "chien": (4, fl.TEM_k_eps_Chien, 0),
+    "rng": (4, fl.TEM_k_eps_RNG, 0),
+    "sa": (3, fl.TEM_Spalart_Allmaras, 0),
+    "smagorinsky": (5, fl.TEM_Smagorinsky, 0),
+    "van driest": (2, fl.TEM_vanDriest, 0),
+    "escudier": (2, fl.TEM_Escudier, 0),
+    "two families": (4, fl.TEM_k_eps_JL, 0),
+    "sa axisymmetric": (3, fl.TEM_Spalart_Allmaras, 1),
+    "rng axisymmetric": (4, fl.TEM_k_eps_RNG, 1)}
+
+
+@functools.lru_cache(maxsize=None)
+def closure_mw_case(name):
+    tm, tem, ft = CLOSURE_MW_DECKS[name]
+    d = ex.wall_channel_deck(48, 96, tm, tem)
+    if name == "two families":
+        # k-eps JL inside, the Prandtl family at the no-slip wall
+        d.data.update({"isTurbulenceReset": "0",
+                       "Contour1.Bound3.TurbulenceModel": "2"})
+    d.data["FlowType"] = str(ft)
+    return port_mw_case(d, dtype="float32")
+
+
+@pytest.mark.parametrize("name", list(CLOSURE_MW_DECKS))
+def test_each_closure_deck_with_moving_walls_picks_its_form(name):
+    """The closures' moving-wall gfc of each deck, in both dispatch forms:
+    gfc_closure_mw_kernel on every general and dual launch, the
+    all-features closures' spec body on the spec launch of a deck with
+    k-eps nodes; pass12's flat form where mw_flat takes the deck."""
+    tm, _, ft = CLOSURE_MW_DECKS[name]
+    case = closure_mw_case(name)
+    p = case.params
+    assert mw_flat(p) == (ft == 0)
+    for dispatch in ("lists", "dual"):
+        step = Solver(case, device="cpu", use_kernels=True,
+                      dispatch=dispatch).fused
+        names = step.iteration_launches()
+        assert_mw_forms(names, p, "gfc_closure_mw_kernel")
+        gfc = [n for n in names if n.startswith("gfc_")]
+        bodies = (["dual"] if dispatch == "dual" else
+                  [b for b in ("spec", "general")
+                   if step.plan.tiles(b).numel()])
+        # spec tiles: the decks with k-eps nodes, on "lists"
+        assert ("spec" in bodies) == (dispatch == "lists" and tm == 4)
+        assert gfc == [("gfc_closure_ext_kernel" if b == "spec"
+                        else "gfc_closure_mw_kernel") + f"<{b}>"
+                       for b in bodies]
 
 
 @pytest.mark.parametrize("kind", list(BEFORE))
