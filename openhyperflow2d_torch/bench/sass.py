@@ -39,6 +39,8 @@ from . import microbench as mb
 _KERNEL = re.compile(r"(shift|div)_chainILi(\d)ELb([01])E")
 # the solver's kernels: <kind>_kernel<BODY>
 _FUSED = re.compile(r"_Z\d+((?:gfc|pass12)\w*?_kernel)ILi(\d)E")
+# the spec tiles' fused iteration (fused_step_spec.cu), no template
+_SPEC = re.compile(r"_Z\d+(step_spec_kernel)6Consts")
 _BODY = {"0": "general", "1": "spec", "2": "dual", "3": "staged"}
 _INST = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _BACK = re.compile(r"\bBRA\S*\s+(?:\S+\s+)?`?\(?(0x[0-9a-f]+)")
@@ -67,8 +69,10 @@ def functions(listing: str) -> dict:
         if "Function :" in line:
             m = _KERNEL.search(line)
             f = _FUSED.search(line)
+            g = _SPEC.search(line)
             cur = (m.groups() if m else
-                   ("fused", f.group(1), _BODY[f.group(2)]) if f else None)
+                   ("fused", f.group(1), _BODY[f.group(2)]) if f else
+                   ("fused", g.group(1), None) if g else None)
             if cur:
                 funcs[cur] = []
             continue
@@ -99,7 +103,8 @@ def report(listing: str) -> list:
     for (kind, arg, flag), insts in sorted(functions(listing).items()):
         if kind == "fused":
             whole = counts(t for _, t in insts)
-            lines.append(f"{arg}<{flag}>: {len(insts)} instructions, "
+            name = arg if flag is None else f"{arg}<{flag}>"
+            lines.append(f"{name}: {len(insts)} instructions, "
                          + ", ".join(f"{k} {v}" for k, v in whole.items()
                                      if v))
             continue
@@ -143,7 +148,9 @@ def line_functions(listing: str) -> dict:
         m = _NVD_FUNC.match(line)
         if m:
             f = _FUSED.search(m.group(1))
-            cur = f"{f.group(1)}<{_BODY[f.group(2)]}>" if f else None
+            g = _SPEC.search(m.group(1))
+            cur = (f"{f.group(1)}<{_BODY[f.group(2)]}>" if f else
+                   g.group(1) if g else None)
             if cur:
                 funcs[cur] = []
             continue

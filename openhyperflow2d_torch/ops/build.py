@@ -48,6 +48,10 @@ _SIGNATURES = {
     # field before the stream
     "hf2d_gfc_ext": [_I] + [_P] * 12 + [_I, _P, _P, _P, _P],
     "hf2d_pass12_ext": [_I] + [_P] * 9 + [_I, _P, _P, _P, _P],
+    # consts, cin, cout, scr, mf, chemf, chemi, dt, aux, aux_next, tiles,
+    # n_tiles, edges, part_i, part_f, stream (the spec tiles' fused
+    # iteration, fused_step_spec.cu)
+    "hf2d_step_spec": [_P] * 11 + [_I] + [_P] * 4,
     # as, n, jp1_lo, jp1_hi, out, bad, stream (the check of pass12's
     # division by j + 1)
     "hf2d_div_jp1_check": [_P, _I, _I, _I, _P, _P, _P],

@@ -47,8 +47,16 @@
 // this two-launch form.  The design keeps the neighbor reads in L1/L2 (a CTA is
 // an 8 x 32 tile, warps run along the contiguous j axis), keeps the
 // per-equation state in registers, and writes partial reductions per tile
-// (no atomics, so the diagnostics are deterministic).  The scratch round
-// trip is what a single fused launch per iteration would remove.
+// (no atomics, so the diagnostics are deterministic).  The scratch is not
+// an input or an output of an iteration: the work of a spec node reads 18
+// carry planes, l_min and beta (112 bytes) and writes the 13 primitives, S
+// and beta (124), 236 bytes, 0.2840 ms over the 2048^2 combustor's 15,748
+// spec tiles.  step_spec_kernel (fused_step_spec.cu) runs both stages of
+// the spec tiles in one launch with the scratch of a tile and its ring in
+// shared memory, against that bound; on the main path it takes the place
+// of gfc_kernel<spec> + pass12_kernel<spec>, which stay for the dual
+// body's comparisons and chip_smoke.py's A/B (ops/fused_step.py
+// spec_fusable).
 //
 // The heat stage reads only what gfc wrote (Tg of `cout`, lam_eff of the
 // scratch, +-2 around a wall) and writes SrcAdd[rhoE] at the wall gas
@@ -265,11 +273,12 @@ gfc_window_kernel(const Consts c, const float* __restrict__ cin,
             uint32_t w[CTX_N_WORDS];
             int8_t id4[4];
             window_ctx<GfcPlanes>(w, id4, buf);
-            gfc_node<false, false, false>(c,
-                            window_src<false, GfcPlanes>(c, buf, mf, w, P, i,
-                                                         j),
-                            w, make_stencil<false>(id4), cout, scr, chemf,
-                            chemi, dt, cfl_scen, mu_t_iter, uns, ovr);
+            const WindowSrc<GfcPlanes> src =
+                window_src<false, GfcPlanes>(c, buf, mf, w, P, i, j);
+            gfc_node<false, false, false>(
+                c, src, w, make_stencil<false>(id4),
+                GlobalOut{cout, scr, P, src.n}, chemf, chemi, dt, cfl_scen,
+                mu_t_iter, uns, ovr);
         }
         // its barrier also frees `buf` for the next copies into it
         gfc_partials(c, i, uns, ovr, tile, part_i);
@@ -544,6 +553,7 @@ const void* hf2d_ext_kernel_fn(int stage, int body);   // fused_step_ext.cu
 const void* hf2d_mw_kernel_fn(int stage, int body);    // fused_step_mw.cu
 // fused_step_closure.cu
 const void* hf2d_closure_kernel_fn(int stage, int body);
+const void* hf2d_spec_kernel_fn();   // fused_step_spec.cu
 
 // Launch facts of one kernel, for the measurements of chip_smoke.py:
 // out[0] registers a thread, out[1] local memory bytes a thread (spills and
@@ -559,16 +569,19 @@ const void* hf2d_closure_kernel_fn(int stage, int body);
 // 9 pass12_axi (the axisymmetric-only form), 10 gfc_axi (gfc's
 // axisymmetric-only form) (hf2d_ext_kernel_fn); the moving-wall forms 11
 // gfc_mw, 12 gfc_closure_mw, 13 gfc_euler_mw, 14 pass12_mw, 19
-// pass12_mw_flat (hf2d_mw_kernel_fn).
+// pass12_mw_flat (hf2d_mw_kernel_fn); 20 step_spec_kernel (body ignored;
+// hf2d_spec_kernel_fn).
 int hf2d_kernel_info(int kernel, int* out) {
     const void* fn = nullptr;
     const int stage = kernel / 8, body = kernel % 8;
     size_t dyn = 0;
     int ctas = 0, per_sm = 0, err = 0;
-    if (stage > 19 || (stage < 2 && body > BODY_STAGED)
+    if (stage > 20 || (stage < 2 && body > BODY_STAGED)
         || (stage == 3 && body != BODY_GENERAL && body != BODY_DUAL))
         return static_cast<int>(cudaErrorInvalidValue);
-    if (stage >= 4) {
+    if (stage == 20) {
+        fn = hf2d_spec_kernel_fn();
+    } else if (stage >= 4) {
         fn = stage == 4 || (stage >= 15 && stage <= 18)
                  ? hf2d_closure_kernel_fn(stage, body)
            : stage >= 11 ? hf2d_mw_kernel_fn(stage, body)

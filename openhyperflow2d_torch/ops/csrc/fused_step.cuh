@@ -891,15 +891,34 @@ __device__ __forceinline__ void closures(const ClosureConsts& c,
 // FillNode2D never rewrites outside SM_NS.  A compile-time flag: the NS
 // bodies' code and registers stay as they were.
 // ---------------------------------------------------------------------------
+// Where gfc_node puts the node's outputs: `carry(plane, v)` a plane of
+// the new carry, `scratch(plane, v)` a plane of the gfc -> pass12 scratch.
+// GlobalOut stores both in global memory at the node (cout and scr), as
+// every kernel but step_spec_kernel does (its sink, SpecOut, keeps the
+// scratch of its tile in shared memory: fused_step_spec.cu).
+struct GlobalOut {
+    float* __restrict__ cout;
+    float* __restrict__ scr;
+    size_t P, n;
+    __device__ __forceinline__ void carry(int plane, float v) const {
+        cout[plane * P + n] = v;
+    }
+    __device__ __forceinline__ void scratch(int plane, float v) const {
+        scr[plane * P + n] = v;
+    }
+};
+
 // `src` reads the carry `cin` (through the node's collapse) and the meta
 // planes mf (aux), `w` holds the node's ctx words, `st` its neighbour
-// flags.
+// flags; `out` takes the outputs.  COEF: the table values come from the
+// staged coefficients (ext.coef) as in the extended and the closures'
+// forms, in a flat standard k-eps form (step_spec_kernel).
 template <bool SPEC, bool EULER, bool CLOSURE, int XF = XF_FLAT,
-          int FAM = FAM_ALL, class C, class Src>
+          int FAM = FAM_ALL, bool COEF = false, class C, class Src,
+          class Out>
 __device__ __forceinline__ void gfc_node(
         const C& c, const Src& src, const uint32_t* w,
-        const Stencil& st, float* __restrict__ cout,
-        float* __restrict__ scr, const float* __restrict__ chemf,
+        const Stencil& st, const Out& out, const float* __restrict__ chemf,
         const int32_t* __restrict__ chemi,
         float dt, float cfl_scen, bool mu_t_iter, bool& uns, bool& ovr,
         const ExtIn& ext = ExtIn{}) {
@@ -1217,12 +1236,12 @@ __device__ __forceinline__ void gfc_node(
     // the carried values)
 #pragma unroll
     for (int e = 0; e < 9; ++e) {
-        scr[(SCR_A + e) * P + n] = guard ? an[e] : 0.f;
-        scr[(SCR_B + e) * P + n] = guard ? bn[e] : 0.f;
+        out.scratch(SCR_A + e, guard ? an[e] : 0.f);
+        out.scratch(SCR_B + e, guard ? bn[e] : 0.f);
         if (!guard) s[e] = ld(CARRY_S + e, NB_C);
     }
-    scr[SCR_SRC_K * P + n] = guard ? src7 : srcd7;
-    scr[SCR_SRC_EPS * P + n] = guard ? src8 : srcd8;
+    out.scratch(SCR_SRC_K, guard ? src7 : srcd7);
+    out.scratch(SCR_SRC_EPS, guard ? src8 : srcd8);
     if constexpr (EXT) {
         if (axi) {
             // F = (rhoV, rhoV U, rhoV V, (rhoE + p) V, rhoY V) less the
@@ -1232,9 +1251,9 @@ __device__ __forceinline__ void gfc_node(
             // B[3..6] under the same guard, which pass12 reads as such
             // (radial_flux): only the other three are written, and their
             // six planes are never written or read
-            scr[(SCR_F + 2) * P + n] = guard ? fn2 : 0.f;
-            scr[(SCR_F + 7) * P + n] = guard ? f7 : 0.f;
-            scr[(SCR_F + 8) * P + n] = guard ? f8 : 0.f;
+            out.scratch(SCR_F + 2, guard ? fn2 : 0.f);
+            out.scratch(SCR_F + 7, guard ? f7 : 0.f);
+            out.scratch(SCR_F + 8, guard ? f8 : 0.f);
         }
     }
     if constexpr (XF == XF_MW) {
@@ -1243,7 +1262,7 @@ __device__ __forceinline__ void gfc_node(
         if (wall_ns) {
 #pragma unroll
             for (int k = 0; k < 6; ++k)
-                scr[(SCR_MW + k) * P + n] = guard ? mw[k] : 0.f;
+                out.scratch(SCR_MW + k, guard ? mw[k] : 0.f);
         }
     }
     const float U_f = guard ? U : U0;
@@ -1284,10 +1303,11 @@ __device__ __forceinline__ void gfc_node(
     // mixture properties at Tg (pre-clip mass fractions)
     const float R_new = chemf[0] * Yfu + chemf[1] * Yox + chemf[2] * Ycp
                         + chemf[3] * Yair;
-    // (the extended forms but the Euler one, and the closures' forms, from
-    // the staged coefficients: mixture_coef, gfc_tile)
+    // (the extended forms but the Euler one, the closures' forms and
+    // step_spec_kernel, from the staged coefficients: mixture_coef,
+    // gfc_tile)
     float CP_new, lam_new, mu_new;
-    if constexpr ((EXT || CLOSURE) && !EULER) {
+    if constexpr ((EXT || CLOSURE || COEF) && !EULER) {
         CP_new = mixture_coef(ext.coef, chemf, chemi, 0, Tg_f, Yfu, Yox, Ycp,
                               Yair);
         lam_new = mixture_coef(ext.coef, chemf, chemi, 1, Tg_f, Yfu, Yox, Ycp,
@@ -1321,28 +1341,28 @@ __device__ __forceinline__ void gfc_node(
 
     // ---------------- stores ----------------------------------------------
 #pragma unroll
-    for (int e = 0; e < 9; ++e) scr[(SCR_S + e) * P + n] = s[e];
-    cout[CARRY_U * P + n] = U_f;
-    cout[CARRY_V * P + n] = V_f;
-    cout[CARRY_P * P + n] = p_f;
-    cout[CARRY_TG * P + n] = Tg_f;
+    for (int e = 0; e < 9; ++e) out.scratch(SCR_S + e, s[e]);
+    out.carry(CARRY_U, U_f);
+    out.carry(CARRY_V, V_f);
+    out.carry(CARRY_P, p_f);
+    out.carry(CARRY_TG, Tg_f);
     const float Yc[4] = {Yfu, Yox, Ycp, Yair};
 #pragma unroll
     for (int k = 0; k < 4; ++k)
-        cout[(CARRY_YC + k) * P + n] = active ? Yc[k]
-                                              : ld(CARRY_YC + k, NB_C);
-    cout[CARRY_R * P + n] = active ? R_new : R;
-    cout[CARRY_CP * P + n] = active ? CP_new : CP;
-    cout[CARRY_LAM * P + n] = active ? lam_new : lam;
-    cout[CARRY_MU * P + n] = active ? mu_new : mu;
-    cout[CARRY_MU_T * P + n] = guard ? mu_t : mu_t0;
+        out.carry(CARRY_YC + k, active ? Yc[k] : ld(CARRY_YC + k, NB_C));
+    out.carry(CARRY_R, active ? R_new : R);
+    out.carry(CARRY_CP, active ? CP_new : CP);
+    out.carry(CARRY_LAM, active ? lam_new : lam);
+    out.carry(CARRY_MU, active ? mu_new : mu);
+    out.carry(CARRY_MU_T, guard ? mu_t : mu_t0);
     // what the heat stage reads: lam after chemistry + lam_t (with the CP
     // before chemistry, physics.py fill_node; EULER: the constant plane),
     // as core/step.gfc leaves them
     if (!SPEC && c.heat)
-        scr[SCR_LAM_EFF * P + n] =
-            __fadd_rn(active ? lam_new : lam,
-                      guard || EULER ? lam_t : __fmul_rn(mu_t0, CP));
+        out.scratch(SCR_LAM_EFF,
+                    __fadd_rn(active ? lam_new : lam,
+                              guard || EULER ? lam_t
+                                             : __fmul_rn(mu_t0, CP)));
 }
 
 // ---------------------------------------------------------------------------
@@ -1714,8 +1734,8 @@ __device__ __forceinline__ void gfc_direct(
     load_idn<SPEC>(id4, idn, P, n);
     gfc_node<SPEC, EULER, CLOSURE, XF, FAM>(
         c, direct_src<SPEC>(c, cin, mf, w, P, i, j), w,
-        make_stencil<SPEC>(id4), cout, scr, chemf, chemi, dt, cfl_scen,
-        mu_t_iter, uns, ovr,
+        make_stencil<SPEC>(id4), GlobalOut{cout, scr, P, n}, chemf, chemi,
+        dt, cfl_scen, mu_t_iter, uns, ovr,
         ExtIn{srcp, nullptr, nullptr, nullptr, i, j, coef});
 }
 

@@ -16,8 +16,15 @@ pallas_step.py:925-1030)
 2. runs K iterations, each ``gfc_kernel`` then ``pass12_kernel``
    (ops/csrc/fused_step.cu), ping-ponging the carry.  The TPU kernel loops
    over the K iterations inside one invocation; here each iteration is its
-   own launch pair, so every tile reads its neighbours' values of the
-   iteration before (Jacobi), as in the TPU kernel.  pass12's general body
+   own launches, so every tile reads its neighbours' values of the
+   iteration before (Jacobi), as in the TPU kernel.  On a flat standard
+   k-eps deck in the "lists" form (``spec_fusable``) the spec tiles run
+   both stages in one launch, ``step_spec_kernel``
+   (ops/csrc/fused_step_spec.cu: gfc on each tile and its one-node ring
+   into shared memory, then pass12, as the TPU kernel's iteration body
+   runs them in VMEM): an iteration is gfc's general launch,
+   ``step_spec_kernel``, then pass12's general launch
+   (``FusedStep.path_gfc``, ``path_pass12``).  pass12's general body
    computes the conjugate wall heat source of its own node on decks with
    non-adiabatic walls next to solids (the heat stage folded; its
    separate form, ``heat_kernel`` between the two launches and
@@ -77,7 +84,8 @@ even in a float64 run, as the TPU kernel's float32 scalar vector did
 heat stage, core/physics.calc_heat_on_wall_sources and core/step.pass12
 over the whole grid, ``pass12_plain`` with the heat source of
 ``heat_source_plain`` or a given one, returning the same planes and
-per-tile partials).
+per-tile partials; ``step_spec_plain``, the spec tiles' fused stages as
+the kernel decomposes them).
 A wrapper runs the plain version for CPU tensors and launches its kernel
 for CUDA tensors; there is no other fallback.
 
@@ -145,6 +153,9 @@ _PRIMS = 18   # carry planes from here on are written by gfc
 NS_KERNEL_NAMES = ("gfc_kernel<spec>", "gfc_kernel<general>",
                    "pass12_kernel<spec>", "pass12_kernel<general>",
                    "gfc_kernel<dual>", "pass12_kernel<dual>")
+# both stages of the spec tiles in one launch (csrc/fused_step_spec.cu), in
+# the place of gfc_kernel<spec> + pass12_kernel<spec> where spec_fusable
+SPEC_KERNEL = "step_spec_kernel"
 EULER_KERNEL_NAMES = ("gfc_euler_kernel<general>", "gfc_euler_kernel<dual>")
 # the closures' gfc in forms fixed at compile time (csrc/
 # fused_step_closure.cu; ``closure_form``): a family's own where p.models
@@ -189,7 +200,7 @@ MW_KERNEL_NAMES = tuple(
                                        "pass12_mw_kernel",
                                        "pass12_mw_flat_kernel")
     for body in ("general", "dual"))
-PATH_KERNEL_NAMES = (NS_KERNEL_NAMES + EULER_KERNEL_NAMES
+PATH_KERNEL_NAMES = (NS_KERNEL_NAMES + (SPEC_KERNEL,) + EULER_KERNEL_NAMES
                      + CLOSURE_KERNEL_NAMES + EXT_KERNEL_NAMES
                      + MW_KERNEL_NAMES)
 KERNEL_NAMES = PATH_KERNEL_NAMES + ("heat_kernel", "gfc_kernel<staged>",
@@ -203,8 +214,13 @@ _BODY_CODE = {"general": 0, "spec": 1, "dual": 2,
               "staged": 3}   # fused_step.cu BODY_*
 # tile subsets of a strip plan (make_tile_plan's ``halo``): "edge" holds
 # every tile with a row in the two halos or in the halo's width of own rows
-# next to them, "inner" the rest
+# next to them, and every spec tile beside a general tile of those (whose
+# pass12 reads the spec tile's border scratch, which step_spec_kernel
+# writes), "inner" the rest
 PARTS = ("edge", "inner")
+# a spec tile's edge mask (csrc/fused_step_spec.cu EDGE_*): the bit of a
+# side whose neighbour tile is a general tile, by the side's (di, dj)
+EDGE_BITS = {(-1, 0): 1, (1, 0): 2, (0, -1): 4, (0, 1): 8}
 
 
 def halo_depth(params) -> int:
@@ -323,6 +339,18 @@ def gfc_form(params) -> str:
     raise ValueError(f"gfc has no extended form for the features {f}")
 
 
+def spec_fusable(params, dispatch: str, n_coef: int) -> bool:
+    """Whether step_spec_kernel can run a deck's spec tiles: a flat
+    standard k-eps deck (its spec launches would be gfc_kernel<spec> and
+    pass12_kernel<spec>: no Euler, closure or extended form) in the
+    "lists" form, whose tables' coefficient block fits the staged
+    CHEM_COEF_MAX floats (``n_coef``).  The dual form keeps its one launch
+    a stage."""
+    return (dispatch == "lists" and not is_euler(params)
+            and not is_closure(params) and not pass12_ext(params)
+            and n_coef <= CHEM_COEF_MAX)
+
+
 def radial_fluxes(scr: torch.Tensor) -> torch.Tensor:
     """The 9 radial fluxes F of an axisymmetric deck's scratch as pass12
     reads them (csrc/fused_step.cuh radial_flux): F[0] = B[0], F[1] =
@@ -383,6 +411,8 @@ class TilePlan:
     flags: torch.Tensor           # int32 per tile id: 1 = spec (row-major)
     window: tuple
     parts: dict
+    edges: np.ndarray             # (nbx, nby) int32 edge masks, host
+    edge_flags: torch.Tensor      # the same per tile id, device
 
     @property
     def n_tiles(self) -> int:
@@ -412,6 +442,32 @@ class TilePlan:
         m = m.reshape(self.nbx, 1, self.nby, 1).expand(
             self.nbx, TX, self.nby, TY)
         return m.reshape(self.nbx * TX, self.nby * TY)[:self.X, :self.Y]
+
+    def border_masks(self, tiles: torch.Tensor):
+        """(X, Y) bool masks of the nodes of a spec tile list that
+        step_spec_kernel writes to the scratch: (S and A: a row on an
+        i-edge facing a general tile, S and B: a column on a j-edge facing
+        one)."""
+        TX, TY = TILE
+        e = np.zeros((self.nbx, self.nby), np.int32)
+        ids = tiles.long().cpu().numpy()
+        e.reshape(-1)[ids] = self.edges.reshape(-1)[ids]
+
+        def nodes(bit, axis, at):
+            m = np.zeros((self.nbx, TX, self.nby, TY), bool)
+            on = (e & bit) != 0
+            if axis == 0:
+                m[:, at] = on[:, :, None]
+            else:
+                m[:, :, :, at] = on[:, None, :]
+            m = m.reshape(self.nbx * TX, self.nby * TY)[:self.X, :self.Y]
+            return torch.as_tensor(m, device=tiles.device)
+
+        ga = (nodes(EDGE_BITS[-1, 0], 0, 0)
+              | nodes(EDGE_BITS[1, 0], 0, TX - 1))
+        gb = (nodes(EDGE_BITS[0, -1], 1, 0)
+              | nodes(EDGE_BITS[0, 1], 1, TY - 1))
+        return ga, gb
 
 
 def _tile_any(node_map, nbx: int, nby: int) -> np.ndarray:
@@ -446,17 +502,35 @@ def make_tile_plan(X: int, Y: int, spec_map, device, heat_map=None,
     def dev(a):
         return torch.as_tensor(a, dtype=torch.int32, device=device)
 
+    def beside(m):
+        """(nbx, nby): for each side, a tile of ``m`` across it, by side
+        ((di, dj) -> map)."""
+        out = {}
+        for (di, dj) in EDGE_BITS:
+            p = np.zeros((nbx + 2, nby + 2), bool)
+            p[1:-1, 1:-1] = m
+            out[di, dj] = p[1 + di:nbx + 1 + di, 1 + dj:nby + 1 + dj]
+        return out
+
+    # the edge mask: a spec tile's sides whose neighbour is a general tile
+    edges = np.zeros((nbx, nby), np.int32)
+    for side, m in beside(~spec).items():
+        edges |= np.where(spec & m, EDGE_BITS[side], 0).astype(np.int32)
     parts = {}
     if halo:
         rows = np.arange(nbx)[:, None] * TX
         edge = np.broadcast_to((rows < 2 * halo) | (rows + TX > X - 2 * halo),
                                (nbx, nby))
-        for body, m in (("spec", spec), ("general", ~spec)):
-            parts[body, "edge"] = dev(ids[m & edge])
-            parts[body, "inner"] = dev(ids[m & ~edge])
+        # a spec tile beside a general "edge" tile is an "edge" tile
+        spec_edge = spec & (edge | np.any(
+            list(beside(~spec & edge).values()), axis=0))
+        for body, m, e in (("spec", spec, spec_edge),
+                           ("general", ~spec, edge)):
+            parts[body, "edge"] = dev(ids[m & e])
+            parts[body, "inner"] = dev(ids[m & ~e])
     return TilePlan(X, Y, nbx, nby, spec, dev(ids[spec]),
                     dev(ids[~spec]), dev(ids[heat]), dev(spec.reshape(-1)),
-                    (halo, X - halo), parts)
+                    (halo, X - halo), parts, edges, dev(edges.reshape(-1)))
 
 
 # ---------------------------------------------------------------------------
@@ -787,7 +861,10 @@ class FusedStep:
     d2*-NULL soft BCs or NRBC (``pass12_ext``, in the feature form
     ``pass12_form``); they read the source field the chunk sets
     (``set_src``).  With moving-wall sources both run their moving-wall
-    forms."""
+    forms.  Where ``spec_fusable``, the path runs the spec tiles on
+    step_spec_kernel (``spec_fused``; ``path_gfc``, ``path_pass12``);
+    setting ``spec_fused`` to False runs them on the pair, as
+    chip_smoke.py's A/B does."""
 
     def __init__(self, meta: GridMeta, params: SolverParams,
                  chem: ChemTables, plan: TilePlan, dispatch: str, ctx):
@@ -826,6 +903,8 @@ class FusedStep:
                 f"the chemistry tables' coefficient block holds {n_coef} "
                 f"floats; the extended and the closures' gfc kernels stage "
                 f"at most {CHEM_COEF_MAX}")
+        self._spec_fusable = spec_fusable(p, "lists", n_coef)
+        self.spec_fused = True
         self.zero_src = torch.zeros((fl.NUM_EQ, p.MaxX, p.MaxY),
                                     dtype=p.torch_dtype, device=meta.CT.device)
         # the external source field (9, X, Y) the extended forms read
@@ -840,6 +919,17 @@ class FusedStep:
 
     def reset_launches(self) -> None:
         self.launches = dict.fromkeys(KERNEL_NAMES, 0)
+
+    @property
+    def spec_fused(self) -> bool:
+        """Whether the path runs the spec tiles on step_spec_kernel: asked
+        for, the deck spec_fusable, and the "lists" form (a step whose
+        dispatch is switched to "dual" runs the dual body)."""
+        return self._spec_fused and self.dispatch == "lists"
+
+    @spec_fused.setter
+    def spec_fused(self, on: bool) -> None:
+        self._spec_fused = bool(on) and self._spec_fusable
 
     def set_lam_t(self, lam_t: torch.Tensor) -> None:
         """The chunk-constant lam_t plane of an Euler deck (the state's
@@ -887,8 +977,13 @@ class FusedStep:
 
     def iteration_launches(self) -> list:
         """The kernels one iteration launches, in order (no launch needs
-        CUDA to be planned)."""
+        CUDA to be planned): with ``spec_fused``, gfc's general launch,
+        step_spec_kernel, pass12's general launch."""
         bodies = self._bodies()
+        if self.spec_fused and "spec" in bodies:
+            return ([self.gfc_name(b) for b in bodies if b != "spec"]
+                    + [SPEC_KERNEL]
+                    + [self.pass12_name(b) for b in bodies if b != "spec"])
         return ([self.gfc_name(b) for b in bodies]
                 + [self.pass12_name(b) for b in bodies])
 
@@ -920,17 +1015,18 @@ class FusedStep:
         lib.check(code, name)
         self.launches[name] += 1
 
-    def _bodies(self, part=None):
+    def _bodies(self, part=None, bodies=None):
         """The gfc/pass12 launches of one iteration (or of one part of a
         strip plan's tiles): the dual form's one, or each list with tiles
-        (spec first)."""
+        (spec first); ``bodies``: of these lists only."""
         if self.dispatch == "dual":
             if part is not None:
                 raise ValueError("the dual form runs every tile in one "
                                  "launch; a part needs dispatch=\"lists\"")
             return ["dual"]
         return [b for b in ("spec", "general")
-                if self.plan.tiles(b, part).numel()]
+                if self.plan.tiles(b, part).numel()
+                and (bodies is None or b in bodies)]
 
     def launch_gfc(self, body, cin, cout, scr, dt, aux, part_i):
         """One gfc_kernel instantiation over its tiles (CUDA tensors);
@@ -984,6 +1080,26 @@ class FusedStep:
         else:
             self._launch("hf2d_pass12", self.pass12_name(body), args)
 
+    def launch_step_spec(self, cin, cout, scr, dt, aux, aux_next, part_i,
+                         part_f, part=None):
+        """step_spec_kernel over the spec tiles, or over its spec tiles of
+        ``part`` (CUDA tensors): gfc at each tile and its ring, pass12 at
+        the tile, the tile's counts and partials; S and A or B at the
+        nodes on an edge facing a general tile into ``scr``, whose other
+        general-tile nodes it reads (gfc<general>'s, launched before)."""
+        if not self.spec_fused:
+            raise ValueError(f"step_spec_kernel does not run this deck's "
+                             f"spec tiles (spec_fused is off: "
+                             f"{self.dispatch!r}, {self.gfc_name('spec')})")
+        self._check_cuda(cin, cout, scr, dt, aux, aux_next, part_f, self.mf,
+                         self.chemf)
+        tiles, n_tiles = self.plan.launch_grid("spec", part)
+        self._launch("hf2d_step_spec", SPEC_KERNEL, (
+            ctypes.addressof(self.consts), _ptr(cin), _ptr(cout), _ptr(scr),
+            _ptr(self.mf), _ptr(self.chemf), _ptr(self.chemi), _ptr(dt),
+            _ptr(aux), _ptr(aux_next), tiles, n_tiles,
+            _ptr(self.plan.edge_flags), _ptr(part_i), _ptr(part_f)))
+
     def launch_heat(self, cout, scr, dt):
         """heat_kernel over the heat tiles (CUDA tensors)."""
         self._check_cuda(cout, scr, dt)
@@ -992,15 +1108,16 @@ class FusedStep:
             ctypes.addressof(self.consts), _ptr(cout), _ptr(scr),
             _ptr(self.ctxw), _ptr(dt), _ptr(tiles), tiles.numel()))
 
-    def gfc(self, cin, cout, scr, dt, aux, part_i):
+    def gfc(self, cin, cout, scr, dt, aux, part_i, bodies=None):
         """gfc_kernel: gradients, fill, dt field and chemistry of iteration
         k from carry ``cin``; writes the scratch, the primitives of
         ``cout`` and per-tile (Tg<0, dt overrun) counts into ``part_i``.
         ``dt`` is the frozen dt (0-d), ``aux`` the (beta, cfl, is_mu_t)
-        row of iteration k."""
+        row of iteration k; ``bodies``: the launches of these tile lists
+        only (default: every launch of the dispatch form)."""
         if cin.device.type == "cpu":
-            return self.gfc_plain(cin, cout, scr, dt, aux, part_i)
-        for body in self._bodies():
+            return self.gfc_plain(cin, cout, scr, dt, aux, part_i, bodies)
+        for body in self._bodies(bodies=bodies):
             self.launch_gfc(body, cin, cout, scr, dt, aux, part_i)
 
     def heat(self, cout, scr, dt):
@@ -1012,18 +1129,55 @@ class FusedStep:
             return self.heat_plain(cout, scr, dt)
         self.launch_heat(cout, scr, dt)
 
-    def pass12(self, cin, cout, scr, dt, aux, part_f, part=None):
+    def pass12(self, cin, cout, scr, dt, aux, part_f, part=None,
+               bodies=None):
         """pass12_kernel: pass 1 + pass 2 from the scratch at +-1 and the
         blending factors of ``cin``; writes S and beta of ``cout`` and
         per-tile (RMS numerator, denominator, DD max) x 9 into ``part_f``.
         ``aux`` is the row of iteration k+1.  ``part`` (one of PARTS)
-        restricts the launches to that part of a strip plan's tiles.  With
-        the heat stage the general body adds SrcAdd[rhoE], computed from
-        gfc's Tg in ``cout`` and lam_eff in ``scr``."""
+        restricts the launches to that part of a strip plan's tiles,
+        ``bodies`` to these tile lists.  With the heat stage the general
+        body adds SrcAdd[rhoE], computed from gfc's Tg in ``cout`` and
+        lam_eff in ``scr``."""
         if cin.device.type == "cpu":
-            return self.pass12_plain(cin, cout, scr, dt, aux, part_f, part)
-        for body in self._bodies(part):
+            return self.pass12_plain(cin, cout, scr, dt, aux, part_f, part,
+                                     bodies=bodies)
+        for body in self._bodies(part, bodies):
             self.launch_pass12(body, cin, cout, scr, dt, aux, part_f, part)
+
+    def step_spec(self, cin, cout, scr, dt, aux, aux_next, part_i, part_f,
+                  part=None):
+        """step_spec_kernel: both stages of iteration k over the spec tiles
+        (of ``part``): gfc's primitives, counts and the border scratch as
+        ``gfc``, S, beta and partials as ``pass12`` with the row
+        ``aux_next``; reads the scratch gfc<general> wrote at the general
+        tiles' nodes around them."""
+        if cin.device.type == "cpu":
+            return self.step_spec_plain(cin, cout, scr, dt, aux, aux_next,
+                                        part_i, part_f, part)
+        self.launch_step_spec(cin, cout, scr, dt, aux, aux_next, part_i,
+                              part_f, part)
+
+    def path_gfc(self, cin, cout, scr, dt, aux, part_i):
+        """The iteration's launches before its pass12 ones, as the path
+        runs them: every gfc launch, or with ``spec_fused`` gfc's general
+        launch alone (the spec tiles' gfc is step_spec_kernel's)."""
+        self.gfc(cin, cout, scr, dt, aux, part_i,
+                 bodies=("general",) if self.spec_fused else None)
+
+    def path_pass12(self, cin, cout, scr, dt, aux, aux_next, part_i, part_f,
+                    part=None):
+        """The iteration's other launches (of ``part``), as the path runs
+        them: every pass12 launch, or with ``spec_fused``
+        step_spec_kernel (gfc and pass12 of the spec tiles) and pass12's
+        general launch, which reads the border scratch it writes."""
+        if not self.spec_fused:
+            return self.pass12(cin, cout, scr, dt, aux_next, part_f, part)
+        if self.plan.tiles("spec", part).numel():
+            self.step_spec(cin, cout, scr, dt, aux, aux_next, part_i,
+                           part_f, part)
+        self.pass12(cin, cout, scr, dt, aux_next, part_f, part,
+                    bodies=("general",))
 
     # ------------------------------------------------------------------
     # plain versions
@@ -1043,36 +1197,92 @@ class FusedStep:
         it, else None (zeros)."""
         return self.mf[META_Y_PLUS] if self.has_y_plus else None
 
-    def gfc_plain(self, cin, cout, scr, dt, aux, part_i):
+    def _gfc_fields(self, cin, dt, aux):
+        """core/step.gfc of carry ``cin`` over the whole grid (no heat
+        stage): (its output state, the per-tile (Tg<0, dt overrun) counts
+        of the window's rows, (n_tiles, 2))."""
         full = expand(carry_views(cin, dt), self.params, self.src,
                       y_plus=self.y_plus(), lam_t=self.lam_t())
         out, dt_field, unstable = gfc(full, self.meta, self.params,
                                       self.chem, self._aux(aux),
                                       return_fields=True, ctx=self.ctx,
                                       heat=False)
-        scr[0:9] = out.S
-        scr[9:18] = out.A
-        scr[18:27] = out.B
-        # k and eps, or SA's nu_t (elsewhere the source field's, or 0)
-        scr[27:29] = out.Src[fl.i2d_k:]
+        counts = torch.stack([
+            _tile_reduce((unstable & self.own).to(torch.int32), self.plan,
+                         "sum"),
+            _tile_reduce(((dt > dt_field) & self.own).to(torch.int32),
+                         self.plan, "sum")], 1).to(torch.int32)
+        return out, counts
+
+    def _tiles_of(self, bodies, part=None) -> torch.Tensor:
+        """The tile ids of the launches of ``bodies`` (of ``part``), long."""
+        lists = [self.plan.tiles(b, part) for b in bodies]
+        return torch.cat(lists or [torch.zeros(0, dtype=torch.int32)]).long()
+
+    def gfc_plain(self, cin, cout, scr, dt, aux, part_i, bodies=None):
+        """``bodies``: write the nodes and counts of these tile lists only
+        (what their launches write; default: the whole grid)."""
+        out, counts = self._gfc_fields(cin, dt, aux)
+        planes = {0: out.S, 9: out.A, 18: out.B,
+                  # k and eps, or SA's nu_t (elsewhere the source field's,
+                  # or 0)
+                  27: out.Src[fl.i2d_k:]}
         if self.axi:
             # F's own planes only, as the extended kernels (radial_fluxes)
             for e in F_OWN:
-                scr[SCR_F + e] = out.F[e]
+                planes[SCR_F + e] = out.F[e][None]
         if self.mw:
             # the moving-wall sources (0 but at guarded no-slip wall nodes)
             for k, e in enumerate(MW_EQ):
-                scr[SCR_MW + k] = out.SrcAdd[e]
+                planes[SCR_MW + k] = out.SrcAdd[e][None]
         if self.has_heat:
             # what the heat stage reads (core/physics.py): lam + lam_t of
             # gfc's output, lam after chemistry and lam_t from the CP
             # before it
-            scr[SCR_LAM_EFF] = out.lam + out.lam_t
-        cout[_PRIMS:] = pack_carry(shrink(out))[_PRIMS:]
-        part_i[:, 0] = _tile_reduce((unstable & self.own).to(torch.int32),
-                                    self.plan, "sum")
-        part_i[:, 1] = _tile_reduce(((dt > dt_field) & self.own).to(
-            torch.int32), self.plan, "sum")
+            planes[SCR_LAM_EFF] = (out.lam + out.lam_t)[None]
+        prims = pack_carry(shrink(out))[_PRIMS:]
+        if bodies is None:
+            for q, v in planes.items():
+                scr[q:q + v.shape[0]] = v
+            cout[_PRIMS:] = prims
+            part_i[:] = counts
+            return
+        tiles = self._tiles_of(self._bodies(bodies=bodies))
+        m = self.plan.node_mask(tiles)
+        for q, v in planes.items():
+            scr[q:q + v.shape[0]] = torch.where(m, v, scr[q:q + v.shape[0]])
+        cout[_PRIMS:] = torch.where(m, prims, cout[_PRIMS:])
+        part_i[tiles] = counts[tiles]
+
+    def step_spec_plain(self, cin, cout, scr, dt, aux, aux_next, part_i,
+                        part_f, part=None):
+        """step_spec_kernel's plain version, its tile decomposition: gfc
+        at each spec tile (of ``part``) and its ring, a ring node of a
+        spec tile recomputed, one of a general tile read from ``scr``
+        (gfc<general>'s), then pass12 at the tile on those values; the
+        tile's primitives, counts, S, beta and partials, and S and A or B
+        at its nodes on an edge facing a general tile into ``scr``
+        (plan.border_masks).  The windows are gathered as one (29, X, Y)
+        stack, each node from its own tile's source, which is what every
+        window holds at that node."""
+        plan = self.plan
+        tiles = plan.tiles("spec", part).long()
+        own = plan.node_mask(tiles)
+        out, counts = self._gfc_fields(cin, dt, aux)
+        fresh = torch.cat([out.S, out.A, out.B, out.Src[fl.i2d_k:]])
+        win = torch.where(plan.node_mask(plan.spec_tiles), fresh, scr[:29])
+        cout[_PRIMS:] = torch.where(own, pack_carry(shrink(out))[_PRIMS:],
+                                    cout[_PRIMS:])
+        part_i[tiles] = counts[tiles]
+        ga, gb = plan.border_masks(tiles)
+        scr[0:9] = torch.where(ga | gb, fresh[0:9], scr[0:9])
+        scr[9:18] = torch.where(ga, fresh[9:18], scr[9:18])
+        scr[18:27] = torch.where(gb, fresh[18:27], scr[18:27])
+        # no spec tile holds a heat or a wall node: no SrcAdd
+        S_c, beta_c, new_f = self._pass12_fields(cin, cout, win, dt,
+                                                 aux_next, add=False)
+        cout[0:18] = torch.where(own, torch.cat([S_c, beta_c]), cout[0:18])
+        part_f[tiles] = new_f[tiles]
 
     def heat_source_plain(self, cout, scr, dt) -> torch.Tensor:
         """(X, Y) SrcAdd[rhoE] of calc_heat_on_wall_sources on gfc's
@@ -1089,26 +1299,47 @@ class FusedStep:
         scr[SCR_SRCADD_E] = self.heat_source_plain(cout, scr, dt)
 
     def pass12_plain(self, cin, cout, scr, dt, aux, part_f, part=None,
-                     heat_src=None):
+                     heat_src=None, bodies=None):
         """``heat_src``: the (X, Y) SrcAdd[rhoE] to add with the heat
         stage (default: heat_source_plain of ``cout`` and ``scr``, the folded
-        form).  ``part``: compute the whole grid, write the nodes and partials
-        of that part's tiles only (what its launches write)."""
+        form).  ``part``, ``bodies``: compute the whole grid, write the
+        nodes and partials of the tiles of that part and of those lists
+        only (what their launches write)."""
+        S_c, beta_c, new_f = self._pass12_fields(cin, cout, scr, dt, aux,
+                                                 heat_src)
+        if part is None and bodies is None:
+            cout[0:9] = S_c
+            cout[9:18] = beta_c
+            part_f[:] = new_f
+            return
+        tiles = self._tiles_of(self._bodies(part, bodies), part)
+        m = self.plan.node_mask(tiles)
+        cout[0:18] = torch.where(m, torch.cat([S_c, beta_c]), cout[0:18])
+        part_f[tiles] = new_f[tiles]
+
+    def _pass12_fields(self, cin, cout, scr, dt, aux, heat_src=None,
+                       add=True):
+        """core/step.pass12 over the whole grid from the scratch ``scr``
+        and the carry ``cin``: (S, beta, per-tile partials (n_tiles, 27)).
+        ``add``: with the heat stage's and the moving walls' SrcAdd (the
+        heat source of ``heat_src``, else heat_source_plain of ``cout`` and
+        ``scr``)."""
         p = self.params
         src = torch.cat([self.src[:fl.i2d_k], scr[27:29]])
         state = expand(carry_views(cin, dt), p, src).replace(
             S=scr[0:9], A=scr[9:18], B=scr[18:27])
         if self.axi:
             state = state.replace(F=radial_fluxes(scr))
-        if self.has_heat or self.mw:
-            add = list(self.zero_src.unbind(0))
+        if add and (self.has_heat or self.mw):
+            src_add = list(self.zero_src.unbind(0))
             if self.has_heat:
-                add[fl.i2d_RhoE] = (self.heat_source_plain(cout, scr, dt)
-                                    if heat_src is None else heat_src)
+                src_add[fl.i2d_RhoE] = (
+                    self.heat_source_plain(cout, scr, dt)
+                    if heat_src is None else heat_src)
             if self.mw:
                 for k, e in enumerate(MW_EQ):
-                    add[e] = scr[SCR_MW + k]
-            state = state.replace(SrcAdd=torch.stack(add))
+                    src_add[e] = scr[SCR_MW + k]
+            state = state.replace(SrcAdd=torch.stack(src_add))
         S_c, beta_c, _, _, f = pass12(state, self.meta, p, self._aux(aux),
                                       return_fields=True, ctx=self.ctx)
         gate = f["gate"] & self.own
@@ -1121,20 +1352,10 @@ class FusedStep:
             num = torch.where(gate, f["dd_local"] * f["dd_local"], 0.0)
             den = gate.to(num.dtype)
         ddm = torch.where(gate, f["dd_local"], 0.0)
-        new_f = torch.cat([_tile_reduce(num, self.plan, "sum"),
-                           _tile_reduce(den, self.plan, "sum"),
-                           _tile_reduce(ddm, self.plan, "max")], 1)
-        if part is None:
-            cout[0:9] = S_c
-            cout[9:18] = beta_c
-            part_f[:] = new_f
-            return
-        tiles = torch.cat([self.plan.tiles(b, part)
-                           for b in self._bodies(part)] or
-                          [torch.zeros(0, dtype=torch.int32)]).long()
-        m = self.plan.node_mask(tiles)
-        cout[0:18] = torch.where(m, torch.cat([S_c, beta_c]), cout[0:18])
-        part_f[tiles] = new_f[tiles]
+        return S_c, beta_c, torch.cat([_tile_reduce(num, self.plan, "sum"),
+                                       _tile_reduce(den, self.plan, "sum"),
+                                       _tile_reduce(ddm, self.plan, "max")],
+                                      1)
 
 
 def tile_totals(part_f: torch.Tensor, part_i: torch.Tensor):
@@ -1223,7 +1444,9 @@ class KernelChunk:
     kernel path (make_pallas_chunk's interface).  ``fuse_iters`` (K): the
     kernel iterations run in blocks of K on one frozen dt (fuse_blocks).
     An iteration launches ``step.iteration_launches()``: gfc, then pass12
-    (with the heat stage folded into its general body)."""
+    (with the heat stage folded into its general body), the spec tiles'
+    two in one where ``spec_fused``.  The scratch starts as NaN, so a
+    value no launch wrote shows where it is read."""
 
     def __init__(self, meta, params, chem, beta_tab, cfl_tab, turb_start,
                  spec_map=None, dispatch="lists", fuse_iters=1):
@@ -1271,8 +1494,8 @@ class KernelChunk:
         step.set_src(src_ext)
         ca, diag0, raw, kaux = self.prologue(state, n_iters, start_iter)
         cb = torch.empty_like(ca)
-        scr = torch.empty((n_scratch(p),) + ca.shape[1:], dtype=dtype,
-                          device=ca.device)
+        scr = torch.full((n_scratch(p),) + ca.shape[1:], float("nan"),
+                         dtype=dtype, device=ca.device)
         # slot i holds iteration i of a block
         part_f = torch.zeros((self.K, self.plan.n_tiles, 27), dtype=dtype,
                              device=ca.device)
@@ -1286,8 +1509,9 @@ class KernelChunk:
             # the kernels take dt through float32 too (see prologue)
             dt_k = dt.to(torch.float32).to(dtype)
             for i, b in enumerate(range(b0, b0 + kk)):
-                step.gfc(ca, cb, scr, dt_k, kaux[b], part_i[i])
-                step.pass12(ca, cb, scr, dt_k, kaux[b + 1], part_f[i])
+                step.path_gfc(ca, cb, scr, dt_k, kaux[b], part_i[i])
+                step.path_pass12(ca, cb, scr, dt_k, kaux[b], kaux[b + 1],
+                                 part_i[i], part_f[i])
                 ca, cb = cb, ca
             blocks.append((*combine(part_f[:kk], part_i[:kk], p),
                            dt.expand(kk)))

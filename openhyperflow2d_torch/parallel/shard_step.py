@@ -502,8 +502,9 @@ class KernelShardChunk(_StripChunk):
         cb = [torch.empty_like(c) for c in ca]
         scr, part_f, part_i = [], [], []
         for step in self.steps:
-            scr.append(torch.empty((n_scratch(p), self.Xext, Y), dtype=dtype,
-                                   device=dev))
+            # NaN: a value no launch wrote shows where it is read
+            scr.append(torch.full((n_scratch(p), self.Xext, Y), float("nan"),
+                                  dtype=dtype, device=dev))
             # slot i holds iteration i of a block
             part_f.append(torch.zeros((K, step.plan.n_tiles, 27),
                                       dtype=dtype, device=dev))
@@ -521,18 +522,20 @@ class KernelShardChunk(_StripChunk):
             for i, b in enumerate(range(b0, b0 + kk)):
                 split = self.overlap and i == kk - 1
                 for s, step in enumerate(self.steps):
-                    step.gfc(ca[s], cb[s], scr[s], dt_k, kaux[b],
-                             part_i[s][i])
+                    step.path_gfc(ca[s], cb[s], scr[s], dt_k, kaux[b],
+                                  part_i[s][i])
                 for s, step in enumerate(self.steps):
-                    step.pass12(ca[s], cb[s], scr[s], dt_k, kaux[b + 1],
-                                part_f[s][i], "edge" if split else None)
+                    step.path_pass12(ca[s], cb[s], scr[s], dt_k, kaux[b],
+                                     kaux[b + 1], part_i[s][i], part_f[s][i],
+                                     "edge" if split else None)
                 if split:
                     # Isend/Irecv -> work -> Wait: the fresh edge columns
                     # travel while pass12 runs over the inner tiles
                     pending = self.fill_halos(cb, async_op=True)
                     for s, step in enumerate(self.steps):
-                        step.pass12(ca[s], cb[s], scr[s], dt_k, kaux[b + 1],
-                                    part_f[s][i], "inner")
+                        step.path_pass12(ca[s], cb[s], scr[s], dt_k,
+                                         kaux[b], kaux[b + 1], part_i[s][i],
+                                         part_f[s][i], "inner")
                 ca, cb = cb, ca
             if not self.overlap:
                 self.fill_halos(ca)
