@@ -55,8 +55,12 @@ _SIGNATURES = {
     # as, n, jp1_lo, jp1_hi, out, bad, stream (the check of pass12's
     # division by j + 1)
     "hf2d_div_jp1_check": [_P, _I, _I, _I, _P, _P, _P],
-    # consts, cout, scr, ctx, dt, tiles, n_tiles, stream
-    "hf2d_heat": [_P] * 6 + [_I, _P],
+    # consts, cin, cout, scr, idn, mf, ctx, chemf, chemi, dt, aux, tiles,
+    # n_tiles, part_i, src, st, part_dt, keep, stream (gfc's state form,
+    # the chunk's epilogue)
+    "hf2d_gfc_state": [_P] * 12 + [_I] + [_P] * 4 + [_I, _P],
+    # consts, cout, scr, ctx, dt, tiles, n_tiles, q_conv, stream
+    "hf2d_heat": [_P] * 6 + [_I, _P, _P],
     # kernel (8 * stage + body), out (int32 x 6)
     "hf2d_kernel_info": [_I, _P],
     # axis, wrap, x, out, X, Y, stream

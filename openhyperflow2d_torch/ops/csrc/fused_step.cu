@@ -11,7 +11,14 @@
 //                        source itself (CalcHeatOnWallSources, "folded")
 //   heat_kernel          the same heat stage as a launch of its own (the
 //                        separate form), one thread per node of the heat
-//                        tiles; no solver path launches it
+//                        tiles; the chunk's epilogue launches it, with the
+//                        wall heat flux Q_conv
+//   gfc_kernel<STATE>,   the chunk's epilogue: the general body over every
+//   gfc_euler_kernel     tile (a tile table: the scatter form), which also
+//     <STATE>            keeps the gradients, lam_t and each tile's least
+//                        dt (BODY_STATE, StateOut in fused_step.cuh); the
+//                        closures', extended and moving-wall files carry
+//                        their gfc forms' state bodies
 //   gfc_window_kernel,   the general body of both stages in a second form
 //   pass12_window_kernel (BODY_STAGED): persistent CTAs, each tile's
 //                        operands staged in shared memory (below); no
@@ -57,6 +64,17 @@
 // of gfc_kernel<spec> + pass12_kernel<spec>, which stay for the dual
 // body's comparisons and chip_smoke.py's A/B (ops/fused_step.py
 // spec_fusable).
+//
+// The chunk's ends (ops/fused_step.KernelChunk): JAX runs the prologue's
+// pass12 and the epilogue's gfc in XLA (pallas_step.py:1085, 1116-1119);
+// here the prologue launches pass12's bodies over every tile from the
+// state packed into the carry and the scratch (the unfolded heat form:
+// the state's SrcAdd plane), and the epilogue the state body of the
+// deck's gfc over every tile, then heat_kernel with Q_conv.  The state
+// body is the general body through a sink that also stores the 19 state
+// planes (the 18 gradients and lam_t) and the moving-wall planes at every
+// node, and reduces each tile's least node dt: 300 B a node of the
+// general body + 76 B of state planes, once a chunk.
 //
 // The heat stage reads only what gfc wrote (Tg of `cout`, lam_eff of the
 // scratch, +-2 around a wall) and writes SrcAdd[rhoE] at the wall gas
@@ -157,12 +175,16 @@
 
 // The heat stage as a launch of its own (the separate form): the SrcAdd
 // plane at the wall gas nodes of the heat tiles; every other node keeps
-// the chunk's zero.
+// the chunk's zero.  With `q_conv` (the chunk's epilogue), also the wall
+// heat flux Q_conv of every node of the heat tiles, as
+// calc_heat_on_wall_sources returns it: a solid node's fold over all four
+// of its wall gas neighbours (heat_q), 0 at a node with no hv_* bit.
 __global__ void __launch_bounds__(TILE_X * TILE_Y)
 heat_kernel(const Consts c, const float* __restrict__ cout,
             float* __restrict__ scr, const int32_t* __restrict__ ctxw,
             const float* __restrict__ dtp,
-            const int32_t* __restrict__ tiles) {
+            const int32_t* __restrict__ tiles,
+            float* __restrict__ q_conv) {
     const int tile = tiles[blockIdx.x];
     const int i = (tile / c.nby) * TILE_X + threadIdx.y;
     const int j = (tile % c.nby) * TILE_Y + threadIdx.x;
@@ -173,22 +195,25 @@ heat_kernel(const Consts c, const float* __restrict__ cout,
     if (heat_source(c, cout, scr, ctxw, P, i, j, heat_word(ctxw, P, n), *dtp,
                     src))
         scr[SCR_SRCADD_E * P + n] = src;
+    if (q_conv != nullptr) q_conv[n] = heat_q(c, cout, scr, ctxw, P, i, j, 3);
 }
 
 
 template <int BODY>
 __global__ void __launch_bounds__(CTA_THREADS)
 gfc_kernel(HF2D_GFC_PARAMS(Consts)) {
-    gfc_tile<BODY, false, false>(HF2D_GFC_FORWARD);
+    gfc_tile<BODY, false, false>(HF2D_GFC_FORWARD, nullptr, nullptr, st,
+                                 part_dt, keep);
 }
 
-// The Euler decks' gfc (BODY_GENERAL or BODY_DUAL): the general body's
-// Euler form on every tile.  A kernel of its own, so the NS kernels keep
-// their symbols, code and budgets.
+// The Euler decks' gfc (BODY_GENERAL, BODY_DUAL or BODY_STATE): the
+// general body's Euler form on every tile.  A kernel of its own, so the NS
+// kernels keep their symbols, code and budgets.
 template <int BODY>
 __global__ void __launch_bounds__(CTA_THREADS)
 gfc_euler_kernel(HF2D_GFC_PARAMS(Consts)) {
-    gfc_tile<BODY, true, false>(HF2D_GFC_FORWARD);
+    gfc_tile<BODY, true, false>(HF2D_GFC_FORWARD, nullptr, nullptr, st,
+                                part_dt, keep);
 }
 #undef HF2D_GFC_PARAMS
 #undef HF2D_GFC_FORWARD
@@ -422,22 +447,38 @@ static const WindowKernel PASS12_WINDOW{
 // persistent grid, the others a CTA per tile; the dual body reads no tile
 // list (`tiles` may be null, `n_tiles` is every tile) and reads `flags`
 // (int32 per tile id, 1 = spec), which the others ignore.  `consts` points
-// to a ClosureConsts; every entry but hf2d_gfc reads its Consts part.
+// to an ExtConsts; every entry reads the part of it its kernels take.
+// hf2d_gfc_state launches the state form (BODY_STATE) of the deck's gfc.
 // ---------------------------------------------------------------------------
 extern "C" {
 
+// fused_step_closure.cu and fused_step_ext.cu: the closures' and the
+// extended forms of gfc, with the state form's outputs `st` and `part_dt`
+// (null but in BODY_STATE) and the bits `keep` of the state planes it
+// stores
 int hf2d_gfc_closure(int body, const void* consts, const void* cin,
                      void* cout, void* scr, const void* idn, const void* mf,
                      const void* ctxw, const void* chemf, const void* chemi,
                      const void* dt, const void* aux, const void* tiles,
-                     int n_tiles, const void* flags, void* part_i,
-                     void* stream);   // fused_step_closure.cu
+                     int n_tiles, const void* flags, void* part_i, void* st,
+                     void* part_dt, int keep, void* stream);
+int hf2d_gfc_ext_state(int body, const void* consts, const void* cin,
+                       void* cout, void* scr, const void* idn,
+                       const void* mf, const void* ctxw, const void* chemf,
+                       const void* chemi, const void* dt, const void* aux,
+                       const void* tiles, int n_tiles, const void* flags,
+                       void* part_i, const void* src, void* st,
+                       void* part_dt, int keep, void* stream);
 
-int hf2d_gfc(int body, const void* consts, const void* cin, void* cout,
-             void* scr, const void* idn, const void* mf, const void* ctxw,
-             const void* chemf, const void* chemi, const void* dt,
-             const void* aux, const void* tiles, int n_tiles,
-             const void* flags, void* part_i, void* stream) {
+}  // extern "C"
+
+// hf2d_gfc with the state form's outputs (null and 0 but in BODY_STATE).
+static int gfc_flat(int body, const void* consts, const void* cin,
+                    void* cout, void* scr, const void* idn, const void* mf,
+                    const void* ctxw, const void* chemf, const void* chemi,
+                    const void* dt, const void* aux, const void* tiles,
+                    int n_tiles, const void* flags, void* part_i, void* st,
+                    void* part_dt, int keep, void* stream) {
     if (n_tiles == 0) return 0;
     const Consts c = *static_cast<const Consts*>(consts);
     const ClosureConsts cc = *static_cast<const ClosureConsts*>(consts);
@@ -459,39 +500,77 @@ int hf2d_gfc(int body, const void* consts, const void* cin, void* cout,
             static_cast<int32_t*>(part_i));
         return static_cast<int>(cudaGetLastError());
     }
-#define HF2D_GFC_ARGS(CONSTS)                                                \
-    CONSTS, static_cast<const float*>(cin), static_cast<float*>(cout),      \
-        static_cast<float*>(scr), static_cast<const int8_t*>(idn),          \
-        static_cast<const float*>(mf), static_cast<const int32_t*>(ctxw),   \
-        static_cast<const float*>(chemf),                                   \
-        static_cast<const int32_t*>(chemi), static_cast<const float*>(dt), \
-        static_cast<const float*>(aux), static_cast<const int32_t*>(tiles), \
-        static_cast<const int32_t*>(flags), static_cast<int32_t*>(part_i)
     if (c.euler && cc.closure)
         return static_cast<int>(cudaErrorInvalidValue);
     else if (cc.closure)   // the deck's closures' form (no staged body)
         return hf2d_gfc_closure(body, consts, cin, cout, scr, idn, mf, ctxw,
                                 chemf, chemi, dt, aux, tiles, n_tiles, flags,
-                                part_i, stream);
+                                part_i, st, part_dt, keep, stream);
     else if (c.euler && body == BODY_GENERAL)
         gfc_euler_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
-            HF2D_GFC_ARGS(c));
+            HF2D_GFC_LAUNCH_ARGS(c));
     else if (c.euler && body == BODY_DUAL)
         gfc_euler_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(
-            HF2D_GFC_ARGS(c));
+            HF2D_GFC_LAUNCH_ARGS(c));
+    else if (c.euler && body == BODY_STATE)
+        gfc_euler_kernel<BODY_STATE><<<n_tiles, block, 0, s>>>(
+            HF2D_GFC_LAUNCH_ARGS(c));
     else if (c.euler)   // no spec or staged body on an Euler deck
         return static_cast<int>(cudaErrorInvalidValue);
     else if (body == BODY_GENERAL)
         gfc_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
-            HF2D_GFC_ARGS(c));
+            HF2D_GFC_LAUNCH_ARGS(c));
     else if (body == BODY_SPEC)
-        gfc_kernel<BODY_SPEC><<<n_tiles, block, 0, s>>>(HF2D_GFC_ARGS(c));
+        gfc_kernel<BODY_SPEC><<<n_tiles, block, 0, s>>>(
+            HF2D_GFC_LAUNCH_ARGS(c));
     else if (body == BODY_DUAL)
-        gfc_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(HF2D_GFC_ARGS(c));
+        gfc_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(
+            HF2D_GFC_LAUNCH_ARGS(c));
+    else if (body == BODY_STATE)
+        gfc_kernel<BODY_STATE><<<n_tiles, block, 0, s>>>(
+            HF2D_GFC_LAUNCH_ARGS(c));
     else
         return static_cast<int>(cudaErrorInvalidValue);
-#undef HF2D_GFC_ARGS
     return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" {
+
+int hf2d_gfc(int body, const void* consts, const void* cin, void* cout,
+             void* scr, const void* idn, const void* mf, const void* ctxw,
+             const void* chemf, const void* chemi, const void* dt,
+             const void* aux, const void* tiles, int n_tiles,
+             const void* flags, void* part_i, void* stream) {
+    if (body == BODY_STATE) return static_cast<int>(cudaErrorInvalidValue);
+    return gfc_flat(body, consts, cin, cout, scr, idn, mf, ctxw, chemf, chemi,
+                    dt, aux, tiles, n_tiles, flags, part_i, nullptr, nullptr,
+                    0, stream);
+}
+
+// The chunk's epilogue: the state form of the deck's gfc (BODY_STATE, the
+// general body over the tile table `tiles`, every tile of the grid), the
+// form picked as the path picks it (ops/fused_step.py gfc_name): an
+// extended or moving-wall deck's in fused_step_ext.cu / fused_step_mw.cu,
+// a closure deck's family form, the Euler or the flat form.  Besides
+// gfc's outputs it writes the state planes `st` (N_STATE planes, those
+// whose bit is set in `keep`: ops/fused_step.py state_keep) and each
+// tile's least node dt into `part_dt` (float per tile id); `src` is the
+// source field (read where ExtConsts::src).
+int hf2d_gfc_state(const void* consts, const void* cin, void* cout,
+                   void* scr, const void* idn, const void* mf,
+                   const void* ctxw, const void* chemf, const void* chemi,
+                   const void* dt, const void* aux, const void* tiles,
+                   int n_tiles, void* part_i, const void* src, void* st,
+                   void* part_dt, int keep, void* stream) {
+    const ExtConsts c = *static_cast<const ExtConsts*>(consts);
+    if (c.axi || c.src || c.wall_src)
+        return hf2d_gfc_ext_state(BODY_STATE, consts, cin, cout, scr, idn,
+                                  mf, ctxw, chemf, chemi, dt, aux, tiles,
+                                  n_tiles, nullptr, part_i, src, st, part_dt,
+                                  keep, stream);
+    return gfc_flat(BODY_STATE, consts, cin, cout, scr, idn, mf, ctxw, chemf,
+                    chemi, dt, aux, tiles, n_tiles, nullptr, part_i, st,
+                    part_dt, keep, stream);
 }
 
 int hf2d_pass12(int body, const void* consts, const void* cin, void* cout,
@@ -536,16 +615,18 @@ int hf2d_pass12(int body, const void* consts, const void* cin, void* cout,
     return static_cast<int>(cudaGetLastError());
 }
 
+// heat_kernel over the heat tiles; `q_conv`: null, or the Q_conv plane it
+// writes at their nodes.
 int hf2d_heat(const void* consts, const void* cout, void* scr,
               const void* ctxw, const void* dt, const void* tiles,
-              int n_tiles, void* stream) {
+              int n_tiles, void* q_conv, void* stream) {
     if (n_tiles == 0) return 0;
     const Consts c = *static_cast<const Consts*>(consts);
     const dim3 block(TILE_Y, TILE_X);
     heat_kernel<<<n_tiles, block, 0, static_cast<cudaStream_t>(stream)>>>(
         c, static_cast<const float*>(cout), static_cast<float*>(scr),
         static_cast<const int32_t*>(ctxw), static_cast<const float*>(dt),
-        static_cast<const int32_t*>(tiles));
+        static_cast<const int32_t*>(tiles), static_cast<float*>(q_conv));
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -560,11 +641,12 @@ const void* hf2d_spec_kernel_fn();   // fused_step_spec.cu
 // stack), out[2] static shared memory, out[3] the dynamic shared memory of
 // a launch, out[4] the CTAs of CTA_THREADS threads an SM holds at that
 // shared memory, out[5] the device's SM count.  `kernel` is 8 * stage +
-// body: stage 0 gfc, 1 pass12 (body BODY_*), 2 heat (body ignored), 3
-// gfc_euler (BODY_GENERAL or BODY_DUAL); the closures' forms 4 gfc_closure
-// (every family), 15 gfc_keps_var, 16 gfc_sa, 17 gfc_smag, 18 gfc_prandtl
-// (BODY_GENERAL, BODY_DUAL and, in the forms 4 and 15, BODY_SPEC;
-// hf2d_closure_kernel_fn); the extended forms 5 gfc_ext, 6
+// body: stage 0 gfc (body BODY_*, BODY_STATE too), 1 pass12 (BODY_GENERAL
+// to BODY_STAGED), 2 heat (body ignored), 3 gfc_euler (BODY_GENERAL,
+// BODY_DUAL or BODY_STATE); the closures' forms 4 gfc_closure (every
+// family), 15 gfc_keps_var, 16 gfc_sa, 17 gfc_smag, 18 gfc_prandtl
+// (BODY_GENERAL, BODY_DUAL, BODY_STATE and, in the forms 4 and 15,
+// BODY_SPEC; hf2d_closure_kernel_fn); the extended forms 5 gfc_ext, 6
 // gfc_closure_ext, 7 gfc_euler_ext, 8 pass12_ext (the all-features form),
 // 9 pass12_axi (the axisymmetric-only form), 10 gfc_axi (gfc's
 // axisymmetric-only form) (hf2d_ext_kernel_fn); the moving-wall forms 11
@@ -576,8 +658,10 @@ int hf2d_kernel_info(int kernel, int* out) {
     const int stage = kernel / 8, body = kernel % 8;
     size_t dyn = 0;
     int ctas = 0, per_sm = 0, err = 0;
-    if (stage > 20 || (stage < 2 && body > BODY_STAGED)
-        || (stage == 3 && body != BODY_GENERAL && body != BODY_DUAL))
+    if (stage > 20 || (stage == 0 && body > BODY_STATE)
+        || (stage == 1 && body > BODY_STAGED)
+        || (stage == 3 && body != BODY_GENERAL && body != BODY_DUAL
+            && body != BODY_STATE))
         return static_cast<int>(cudaErrorInvalidValue);
     if (stage == 20) {
         fn = hf2d_spec_kernel_fn();
@@ -594,16 +678,18 @@ int hf2d_kernel_info(int kernel, int* out) {
         err = k.grid(&ctas, &per_sm);
         if (err) return err;
     } else if (stage == 0) {
-        fn = body == BODY_SPEC ? (const void*)gfc_kernel<BODY_SPEC>
-           : body == BODY_DUAL ? (const void*)gfc_kernel<BODY_DUAL>
-                               : (const void*)gfc_kernel<BODY_GENERAL>;
+        fn = body == BODY_SPEC    ? (const void*)gfc_kernel<BODY_SPEC>
+           : body == BODY_DUAL    ? (const void*)gfc_kernel<BODY_DUAL>
+           : body == BODY_STATE   ? (const void*)gfc_kernel<BODY_STATE>
+                                  : (const void*)gfc_kernel<BODY_GENERAL>;
     } else if (stage == 1) {
         fn = body == BODY_SPEC ? (const void*)pass12_kernel<BODY_SPEC>
            : body == BODY_DUAL ? (const void*)pass12_kernel<BODY_DUAL>
                                : (const void*)pass12_kernel<BODY_GENERAL>;
     } else if (stage == 3) {
-        fn = body == BODY_DUAL ? (const void*)gfc_euler_kernel<BODY_DUAL>
-                               : (const void*)gfc_euler_kernel<BODY_GENERAL>;
+        fn = body == BODY_DUAL    ? (const void*)gfc_euler_kernel<BODY_DUAL>
+           : body == BODY_STATE   ? (const void*)gfc_euler_kernel<BODY_STATE>
+                                  : (const void*)gfc_euler_kernel<BODY_GENERAL>;
     } else {
         fn = (const void*)heat_kernel;
     }

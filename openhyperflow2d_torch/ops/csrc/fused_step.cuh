@@ -160,11 +160,14 @@ __device__ __forceinline__ bool ext_src(const C& c) {
 }
 
 // kernel bodies (ops/fused_step.py _BODY_CODE): GENERAL is the general
-// body on direct global loads, STAGED the same body on staged windows
+// body on direct global loads, STAGED the same body on staged windows,
+// STATE gfc's general body over a tile table that also keeps what the
+// chunk's epilogue returns (gfc_tile, StateOut)
 constexpr int BODY_GENERAL = 0;
 constexpr int BODY_SPEC = 1;
 constexpr int BODY_DUAL = 2;
 constexpr int BODY_STAGED = 3;
+constexpr int BODY_STATE = 4;
 
 constexpr int CTA_THREADS = TILE_X * TILE_Y;
 
@@ -896,16 +899,59 @@ __device__ __forceinline__ void closures(const ClosureConsts& c,
 // GlobalOut stores both in global memory at the node (cout and scr), as
 // every kernel but step_spec_kernel does (its sink, SpecOut, keeps the
 // scratch of its tile in shared memory: fused_step_spec.cu).
+//
+// What only the chunk's epilogue keeps (StateOut): `grad(plane, v)` a
+// gradient plane of the SolverState (ST_*), `lam_t(v)` its lam_t, `dt(v)`
+// the node's dt limit (1 off the active nodes, as core/step.gfc's dt
+// field).  Every other sink drops them (HF2D_NO_STATE), so its kernels
+// keep their code; a sink's STATE also writes the moving-wall planes at
+// every node (0 off the no-slip wall nodes, as the state's SrcAdd).  The
+// Euler forms call neither grad nor lam_t: outside SM_NS the state keeps
+// the expanded zeros and its own lam_t (META_LAM_T).
+#define HF2D_NO_STATE                                                        \
+    static constexpr bool STATE = false;                                    \
+    __device__ __forceinline__ void grad(int, float) const {}               \
+    __device__ __forceinline__ void lam_t(float) const {}                   \
+    __device__ __forceinline__ void dt(float) const {}
+
 struct GlobalOut {
     float* __restrict__ cout;
     float* __restrict__ scr;
     size_t P, n;
+    HF2D_NO_STATE
     __device__ __forceinline__ void carry(int plane, float v) const {
         cout[plane * P + n] = v;
     }
     __device__ __forceinline__ void scratch(int plane, float v) const {
         scr[plane * P + n] = v;
     }
+};
+
+// GlobalOut's stores, and the state planes `st` (N_STATE planes) at the
+// node, those whose bit is set in `keep` (ops/fused_step.py state_keep: a
+// deck with no k-eps or SA closure leaves dkdx..depsdy to the host's
+// zeros); the node's dt into `*dtn`.
+struct StateOut {
+    float* __restrict__ cout;
+    float* __restrict__ scr;
+    float* __restrict__ st;
+    size_t P, n;
+    float* dtn;
+    int keep;
+    static constexpr bool STATE = true;
+    __device__ __forceinline__ void carry(int plane, float v) const {
+        cout[plane * P + n] = v;
+    }
+    __device__ __forceinline__ void scratch(int plane, float v) const {
+        scr[plane * P + n] = v;
+    }
+    __device__ __forceinline__ void grad(int plane, float v) const {
+        if ((keep >> plane) & 1) st[plane * P + n] = v;
+    }
+    __device__ __forceinline__ void lam_t(float v) const {
+        if ((keep >> ST_LAM_T) & 1) st[ST_LAM_T * P + n] = v;
+    }
+    __device__ __forceinline__ void dt(float v) const { *dtn = v; }
 };
 
 // `src` reads the carry `cin` (through the node's collapse) and the meta
@@ -1009,6 +1055,25 @@ __device__ __forceinline__ void gfc_node(
         ? (ld(CARRY_TG, NB_R) - ld(CARRY_TG, NB_L)) * dx1nn : 0.f;
     const float dTdy = grad
         ? (ld(CARRY_TG, NB_U) - ld(CARRY_TG, NB_D)) * dy1mm : 0.f;
+    // the state's gradients: core/step.gfc's masks over the expanded
+    // state's zeros (EULER: none, the host keeps the zeros)
+    if constexpr (!EULER) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            out.grad(ST_DROYDX + k, dro_x[k]);
+            out.grad(ST_DROYDY + k, dro_y[k]);
+        }
+        out.grad(ST_DUDX, dUdx);
+        out.grad(ST_DUDY, dUdy);
+        out.grad(ST_DVDX, dVdx);
+        out.grad(ST_DVDY, dVdy);
+        out.grad(ST_DTDX, dTdx);
+        out.grad(ST_DTDY, dTdy);
+        out.grad(ST_DKDX, dkdx);
+        out.grad(ST_DKDY, dkdy);
+        out.grad(ST_DEPSDX, depsdx);
+        out.grad(ST_DEPSDY, depsdy);
+    }
 
     // ---------------- FillNode2D (hyper_flow_node.hpp:374-600) ------------
     float s[9];
@@ -1258,8 +1323,9 @@ __device__ __forceinline__ void gfc_node(
     }
     if constexpr (XF == XF_MW) {
         // written at the no-slip wall nodes alone, where pass12 reads them
-        // (0 where the guard fails: the expanded state's SrcAdd)
-        if (wall_ns) {
+        // (0 where the guard fails: the expanded state's SrcAdd); by a
+        // STATE sink at every node (mw's zeros elsewhere)
+        if (wall_ns || Out::STATE) {
 #pragma unroll
             for (int k = 0; k < 6; ++k)
                 out.scratch(SCR_MW + k, guard ? mw[k] : 0.f);
@@ -1277,6 +1343,7 @@ __device__ __forceinline__ void gfc_node(
     const float dt_nodes = cfl_min * fminf(c.dx / (aaa + fabsf(U_f)),
                                            c.dy / (aaa + fabsf(V_f)));
     ovr = dt > (active ? dt_nodes : 1.f);
+    out.dt(active ? dt_nodes : 1.f);
 
     // ---------------- chemistry (deeps2d_core.cpp:4697-4780) --------------
     const float rho2 = s[0];
@@ -1363,6 +1430,9 @@ __device__ __forceinline__ void gfc_node(
                     __fadd_rn(active ? lam_new : lam,
                               guard || EULER ? lam_t
                                              : __fmul_rn(mu_t0, CP)));
+    // the state's lam_t (fill_node's, through the guard; EULER: the
+    // state's own, which the host keeps)
+    if constexpr (!EULER) out.lam_t(guard ? lam_t : __fmul_rn(mu_t0, CP));
 }
 
 // ---------------------------------------------------------------------------
@@ -1714,9 +1784,10 @@ __device__ __forceinline__ bool spec_tile(const int32_t* __restrict__ flags,
 // One node of gfc on direct global loads; XF: the feature form (the
 // extended and the closures' forms read the staged table coefficients
 // `coef`, and the all-features form the source field `srcp`); FAM: the
-// closure families compiled.
+// closure families compiled; STATE: the state form's sink (StateOut: the
+// state planes `st` of `keep`, the node's dt into `*dtn`).
 template <bool SPEC, bool EULER, bool CLOSURE, int XF = XF_FLAT,
-          int FAM = FAM_ALL, class C>
+          int FAM = FAM_ALL, bool STATE = false, class C>
 __device__ __forceinline__ void gfc_direct(
         const C& c, const float* __restrict__ cin,
         float* __restrict__ cout, float* __restrict__ scr,
@@ -1725,18 +1796,26 @@ __device__ __forceinline__ void gfc_direct(
         const int32_t* __restrict__ chemi, float dt, float cfl_scen,
         bool mu_t_iter, int i, int j, bool& uns, bool& ovr,
         const float* __restrict__ srcp = nullptr,
-        const float* coef = nullptr) {
+        const float* coef = nullptr, float* __restrict__ st = nullptr,
+        float* dtn = nullptr, int keep = 0) {
     const size_t P = static_cast<size_t>(c.X) * c.Y;
     const size_t n = static_cast<size_t>(i) * c.Y + j;
     uint32_t w[CTX_N_WORDS];
     int8_t id4[4];
     load_ctx<SPEC>(w, ctxw, P, n);
     load_idn<SPEC>(id4, idn, P, n);
-    gfc_node<SPEC, EULER, CLOSURE, XF, FAM>(
-        c, direct_src<SPEC>(c, cin, mf, w, P, i, j), w,
-        make_stencil<SPEC>(id4), GlobalOut{cout, scr, P, n}, chemf, chemi,
-        dt, cfl_scen, mu_t_iter, uns, ovr,
-        ExtIn{srcp, nullptr, nullptr, nullptr, i, j, coef});
+    const DirectSrc src = direct_src<SPEC>(c, cin, mf, w, P, i, j);
+    const ExtIn ext{srcp, nullptr, nullptr, nullptr, i, j, coef};
+    if constexpr (STATE)
+        gfc_node<SPEC, EULER, CLOSURE, XF, FAM>(
+            c, src, w, make_stencil<SPEC>(id4),
+            StateOut{cout, scr, st, P, n, dtn, keep}, chemf, chemi, dt,
+            cfl_scen,
+            mu_t_iter, uns, ovr, ext);
+    else
+        gfc_node<SPEC, EULER, CLOSURE, XF, FAM>(
+            c, src, w, make_stencil<SPEC>(id4), GlobalOut{cout, scr, P, n},
+            chemf, chemi, dt, cfl_scen, mu_t_iter, uns, ovr, ext);
 }
 
 // One node of pass12 on direct global loads.  With the heat stage, the
@@ -1787,6 +1866,32 @@ __device__ __forceinline__ void gfc_partials(const Consts& c, int i,
     }
 }
 
+// min(a, b) that keeps a NaN of either (torch.amin's, where fminf drops
+// it).
+__device__ __forceinline__ float nan_min(float a, float b) {
+    return (a < b || a != a) ? a : b;
+}
+
+// The state form's per-tile dt partial: the least node dt `v` of the tile
+// over the window's rows (1 at a node outside them or past the grid's
+// edge), lanes of a warp by shuffles, then the TILE_X warps, into
+// part_dt[tile].  Every thread of the CTA takes part; a CTA barrier.
+__device__ __forceinline__ void tile_dt_min(const Consts& c, int i, int j,
+                                            float v, int tile,
+                                            float* __restrict__ part_dt) {
+    __shared__ float red[TILE_X];
+    float m = i < c.X && j < c.Y && i >= c.x0 && i < c.x1 ? v : 1.f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+        m = nan_min(m, __shfl_down_sync(0xffffffffu, m, off));
+    if (threadIdx.x == 0) red[threadIdx.y] = m;
+    __syncthreads();
+    if (threadIdx.x == 0 && threadIdx.y == 0) {
+        for (int r = 1; r < TILE_X; ++r) m = nan_min(m, red[r]);
+        part_dt[tile] = m;
+    }
+}
+
 // The tile partials of pass12 in a fixed order: lanes of a warp (one row
 // of the tile), then the TILE_X warps in row order.  Ends with the thread
 // that writes them; `red` is free again after the caller's next barrier.
@@ -1807,6 +1912,12 @@ __device__ __forceinline__ void pass12_partials(const ArrayAcc& acc,
 // floats of shared memory, HF2D_COEF): the Euler form looks up only CP, 4
 // tables, and ran 1.003-1.006x as long with the staged block as without
 // it on an H100.
+//
+// BODY_STATE is the chunk's epilogue: the general body over the tile table
+// `tiles` (every tile of the grid: T4's launch), its sink StateOut, which
+// also writes the gradients and lam_t into the state planes `st` (those
+// of `keep`), the moving-wall planes at every node, and each tile's least
+// node dt into part_dt (tile_dt_min).
 template <int BODY, bool EULER, bool CLOSURE, int XF = XF_FLAT,
           int FAM = FAM_ALL, class C>
 __device__ __forceinline__ void gfc_tile(
@@ -1817,24 +1928,30 @@ __device__ __forceinline__ void gfc_tile(
         const int32_t* __restrict__ chemi, const float* __restrict__ dtp,
         const float* __restrict__ aux, const int32_t* __restrict__ tiles,
         const int32_t* __restrict__ flags, int32_t* __restrict__ part_i,
-        const float* __restrict__ srcp = nullptr, float* coef = nullptr) {
+        const float* __restrict__ srcp = nullptr, float* coef = nullptr,
+        float* __restrict__ st = nullptr,
+        float* __restrict__ part_dt = nullptr, int keep = 0) {
+    constexpr bool STATE = BODY == BODY_STATE;
     const int tile = cta_tile<BODY>(tiles);
     const int i = (tile / c.nby) * TILE_X + threadIdx.y;
     const int j = (tile % c.nby) * TILE_Y + threadIdx.x;
     bool uns = false, ovr = false;
+    float dtn = 1.f;
     if constexpr ((XF != XF_FLAT || CLOSURE) && !EULER)
         stage_chem_coef(coef, chemf, chemi);
     if (i < c.X && j < c.Y) {
-        if (!EULER && spec_tile<BODY>(flags, tile))
+        if (!EULER && !STATE && spec_tile<BODY>(flags, tile))
             gfc_direct<true, false, CLOSURE, XF, FAM>(
                 c, cin, cout, scr, idn, mf, ctxw, chemf, chemi, *dtp, aux[1],
                 aux[2] > F(0.5), i, j, uns, ovr, srcp, coef);
         else
-            gfc_direct<false, EULER, CLOSURE, XF, FAM>(
+            gfc_direct<false, EULER, CLOSURE, XF, FAM, STATE>(
                 c, cin, cout, scr, idn, mf, ctxw, chemf, chemi, *dtp, aux[1],
-                aux[2] > F(0.5), i, j, uns, ovr, srcp, coef);
+                aux[2] > F(0.5), i, j, uns, ovr, srcp, coef, st, &dtn,
+                keep);
     }
     gfc_partials(c, i, uns, ovr, tile, part_i);
+    if constexpr (STATE) tile_dt_min(c, i, j, dtn, tile, part_dt);
 }
 
 // A CTA of pass12 over its tile, the partials through the CTA's `red`
@@ -1889,6 +2006,10 @@ __device__ __forceinline__ void pass12_tile(
     }
 }
 
+// A gfc kernel's parameters: the stage's, then the state form's outputs
+// `st` and `part_dt` (null but in BODY_STATE) and the bits `keep` of the
+// state planes it stores (StateOut; the kernel hands the three to gfc_tile
+// after its source field and table coefficients).
 #define HF2D_GFC_PARAMS(CONSTS)                                              \
     const CONSTS c, const float* __restrict__ cin, float* __restrict__ cout, \
         float* __restrict__ scr, const int8_t* __restrict__ idn,            \
@@ -1896,8 +2017,20 @@ __device__ __forceinline__ void pass12_tile(
         const float* __restrict__ chemf, const int32_t* __restrict__ chemi, \
         const float* __restrict__ dtp, const float* __restrict__ aux,       \
         const int32_t* __restrict__ tiles,                                  \
-        const int32_t* __restrict__ flags, int32_t* __restrict__ part_i
+        const int32_t* __restrict__ flags, int32_t* __restrict__ part_i,    \
+        float* __restrict__ st, float* __restrict__ part_dt, const int keep
 #define HF2D_GFC_FORWARD                                                     \
     c, cin, cout, scr, idn, mf, ctxw, chemf, chemi, dtp, aux, tiles, flags, \
         part_i
+// the host-side arguments of a gfc launch in that order (the C entries),
+// from void pointers of the same names and the int `keep`
+#define HF2D_GFC_LAUNCH_ARGS(CONSTS)                                         \
+    CONSTS, static_cast<const float*>(cin), static_cast<float*>(cout),      \
+        static_cast<float*>(scr), static_cast<const int8_t*>(idn),          \
+        static_cast<const float*>(mf), static_cast<const int32_t*>(ctxw),   \
+        static_cast<const float*>(chemf),                                   \
+        static_cast<const int32_t*>(chemi), static_cast<const float*>(dt), \
+        static_cast<const float*>(aux), static_cast<const int32_t*>(tiles), \
+        static_cast<const int32_t*>(flags), static_cast<int32_t*>(part_i),  \
+        static_cast<float*>(st), static_cast<float*>(part_dt), keep
 

@@ -12,9 +12,10 @@
 //   gfc_prandtl_kernel<BODY>   the Prandtl family (Prandtl, van Driest,
 //                              Escudier, Klebanoff)
 //
-// BODY is the general, spec or dual body; only k-eps nodes make spec tiles
-// (static_ctx spec_supported), so the SA, Smagorinsky and Prandtl forms
-// have no spec body.
+// BODY is the general, spec or dual body, or the general body's state form
+// of the chunk's epilogue (BODY_STATE, fused_step.cuh gfc_tile); only k-eps
+// nodes make spec tiles (static_ctx spec_supported), so the SA,
+// Smagorinsky and Prandtl forms have no spec body.
 //
 // They replace the TPU kernel of the flat forms
 // (openhyperflow2d_tpu/ops/pallas_step.py _machinery.make_fused: general
@@ -39,8 +40,8 @@
     __global__ void __launch_bounds__(CTA_THREADS, 3)                        \
     NAME(HF2D_GFC_PARAMS(ClosureConsts)) {                                   \
         HF2D_COEF                                                            \
-        gfc_tile<BODY, false, true, XF_FLAT, FAM>(HF2D_GFC_FORWARD,          \
-                                                  nullptr, HF2D_COEF_PTR);   \
+        gfc_tile<BODY, false, true, XF_FLAT, FAM>(                           \
+            HF2D_GFC_FORWARD, nullptr, HF2D_COEF_PTR, st, part_dt, keep);          \
     }
 HF2D_CLOSURE_FORM(gfc_closure_kernel, FAM_ALL)
 HF2D_CLOSURE_FORM(gfc_keps_var_kernel, MODEL_KEPS)
@@ -66,15 +67,16 @@ static int closure_family(const ClosureConsts& c) {
 }
 
 // Each form: its family, its stage of hf2d_kernel_info, and its bodies'
-// kernels (general, dual, spec; no spec body but in the forms that carry
-// k-eps).
+// kernels (general, dual, the chunk epilogue's state form, spec; no spec
+// body but in the forms that carry k-eps).
 struct ClosureForm {
     int fam, stage;
-    const void *general, *dual, *spec;
+    const void *general, *dual, *state, *spec;
 };
 #define HF2D_FORM(NAME, FAM, STAGE, SPEC)                                    \
     {FAM, STAGE, reinterpret_cast<const void*>(NAME<BODY_GENERAL>),          \
-     reinterpret_cast<const void*>(NAME<BODY_DUAL>), SPEC}
+     reinterpret_cast<const void*>(NAME<BODY_DUAL>),                         \
+     reinterpret_cast<const void*>(NAME<BODY_STATE>), SPEC}
 static const ClosureForm CLOSURE_FORMS[] = {
     HF2D_FORM(gfc_closure_kernel, FAM_ALL, 4,
               reinterpret_cast<const void*>(gfc_closure_kernel<BODY_SPEC>)),
@@ -90,6 +92,7 @@ static const ClosureForm CLOSURE_FORMS[] = {
 static const void* body_kernel(const ClosureForm& f, int body) {
     return body == BODY_GENERAL ? f.general
          : body == BODY_DUAL    ? f.dual
+         : body == BODY_STATE   ? f.state
          : body == BODY_SPEC    ? f.spec
                                 : nullptr;
 }
@@ -97,15 +100,16 @@ static const void* body_kernel(const ClosureForm& f, int body) {
 extern "C" {
 
 // hf2d_gfc of fused_step.cu on a closure deck (ClosureConsts::closure):
-// the arguments of hf2d_gfc; launches the deck's family form
-// (closure_family) over `n_tiles` tiles on `stream` and returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a body the form lacks.
+// the arguments of hf2d_gfc and the state form's outputs and plane bits
+// (null and 0 but in BODY_STATE); launches the deck's family form (closure_family) over
+// `n_tiles` tiles on `stream` and returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a body the form lacks.
 int hf2d_gfc_closure(int body, const void* consts, const void* cin,
                      void* cout, void* scr, const void* idn, const void* mf,
                      const void* ctxw, const void* chemf, const void* chemi,
                      const void* dt, const void* aux, const void* tiles,
-                     int n_tiles, const void* flags, void* part_i,
-                     void* stream) {
+                     int n_tiles, const void* flags, void* part_i, void* st,
+                     void* part_dt, int keep, void* stream) {
     if (n_tiles == 0) return 0;
     ClosureConsts c = *static_cast<const ClosureConsts*>(consts);
     const int fam = closure_family(c);
@@ -113,8 +117,9 @@ int hf2d_gfc_closure(int body, const void* consts, const void* cin,
     for (const ClosureForm& f : CLOSURE_FORMS)
         if (f.fam == fam) fn = body_kernel(f, body);
     if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    void* args[] = {&c,    &cin,   &cout,  &scr, &idn,   &mf,   &ctxw,
-                    &chemf, &chemi, &dt,    &aux, &tiles, &flags, &part_i};
+    void* args[] = {&c,    &cin,   &cout,  &scr, &idn,   &mf,
+                    &ctxw, &chemf, &chemi, &dt,  &aux,   &tiles,
+                    &flags, &part_i, &st,  &part_dt, &keep};
     const cudaError_t err = cudaLaunchKernel(
         fn, dim3(n_tiles), dim3(TILE_Y, TILE_X), args, 0,
         static_cast<cudaStream_t>(stream));

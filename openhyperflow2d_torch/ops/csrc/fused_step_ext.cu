@@ -83,7 +83,7 @@ __global__ void __launch_bounds__(CTA_THREADS, 3)
 gfc_axi_kernel(HF2D_GFC_PARAMS(ExtConsts), const float* __restrict__ srcp) {
     HF2D_COEF
     gfc_tile<BODY, false, false, XF_AXI>(HF2D_GFC_FORWARD, srcp,
-                                         HF2D_COEF_PTR);
+                                         HF2D_COEF_PTR, st, part_dt, keep);
 }
 
 template <int BODY>
@@ -91,7 +91,7 @@ __global__ void __launch_bounds__(CTA_THREADS, 3)
 gfc_ext_kernel(HF2D_GFC_PARAMS(ExtConsts), const float* __restrict__ srcp) {
     HF2D_COEF
     gfc_tile<BODY, false, false, XF_ALL>(HF2D_GFC_FORWARD, srcp,
-                                         HF2D_COEF_PTR);
+                                         HF2D_COEF_PTR, st, part_dt, keep);
 }
 
 // 3 CTAs an SM, as gfc_closure_kernel: at 80 registers the general and
@@ -105,14 +105,15 @@ gfc_closure_ext_kernel(HF2D_GFC_PARAMS(ExtConsts),
                        const float* __restrict__ srcp) {
     HF2D_COEF
     gfc_tile<BODY, false, true, XF_ALL>(HF2D_GFC_FORWARD, srcp,
-                                        HF2D_COEF_PTR);
+                                        HF2D_COEF_PTR, st, part_dt, keep);
 }
 
 template <int BODY>
 __global__ void __launch_bounds__(CTA_THREADS, 3)
 gfc_euler_ext_kernel(HF2D_GFC_PARAMS(ExtConsts),
                      const float* __restrict__ srcp) {
-    gfc_tile<BODY, true, false, XF_ALL>(HF2D_GFC_FORWARD, srcp);
+    gfc_tile<BODY, true, false, XF_ALL>(HF2D_GFC_FORWARD, srcp, nullptr, st,
+                                        part_dt, keep);
 }
 #undef HF2D_GFC_PARAMS
 #undef HF2D_GFC_FORWARD
@@ -214,12 +215,79 @@ int hf2d_gfc_mw(int body, const void* consts, const void* cin, void* cout,
                 const void* ctxw, const void* chemf, const void* chemi,
                 const void* dt, const void* aux, const void* tiles,
                 int n_tiles, const void* flags, void* part_i,
-                const void* src, void* stream);
+                const void* src, void* st, void* part_dt, int keep,
+                void* stream);
 int hf2d_pass12_mw(int body, const void* consts, const void* cin,
                    void* cout, const void* scr, const void* idn,
                    const void* ctxw, const void* dt, const void* aux,
                    const void* tiles, int n_tiles, const void* flags,
                    void* part_f, const void* src, void* stream);
+
+// hf2d_gfc_ext with the state form's outputs `st`, `part_dt` and plane
+// bits `keep` (null and 0 but in BODY_STATE: fused_step.cu's hf2d_gfc_state on an extended or
+// moving-wall deck).
+int hf2d_gfc_ext_state(int body, const void* consts, const void* cin,
+                       void* cout, void* scr, const void* idn,
+                       const void* mf, const void* ctxw, const void* chemf,
+                       const void* chemi, const void* dt, const void* aux,
+                       const void* tiles, int n_tiles, const void* flags,
+                       void* part_i, const void* src, void* st,
+                       void* part_dt, int keep, void* stream) {
+    if (n_tiles == 0) return 0;
+    const ExtConsts c = *static_cast<const ExtConsts*>(consts);
+    if (c.wall_src && body != BODY_SPEC)
+        return hf2d_gfc_mw(body, consts, cin, cout, scr, idn, mf, ctxw,
+                           chemf, chemi, dt, aux, tiles, n_tiles, flags,
+                           part_i, src, st, part_dt, keep, stream);
+    const dim3 block(TILE_Y, TILE_X);
+    auto s = static_cast<cudaStream_t>(stream);
+#define HF2D_GFC_EXT_ARGS                                                    \
+    HF2D_GFC_LAUNCH_ARGS(c), static_cast<const float*>(src)
+#define HF2D_GFC_EXT_LAUNCH(KERNEL, BODY)                                    \
+    KERNEL<BODY><<<n_tiles, block, 0, s>>>(HF2D_GFC_EXT_ARGS)
+    const int form = gfc_form(c);
+    if ((c.euler && c.closure) || form < 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    else if (c.closure && body == BODY_GENERAL)
+        HF2D_GFC_EXT_LAUNCH(gfc_closure_ext_kernel, BODY_GENERAL);
+    else if (c.closure && body == BODY_SPEC)
+        HF2D_GFC_EXT_LAUNCH(gfc_closure_ext_kernel, BODY_SPEC);
+    else if (c.closure && body == BODY_DUAL)
+        HF2D_GFC_EXT_LAUNCH(gfc_closure_ext_kernel, BODY_DUAL);
+    else if (c.closure && body == BODY_STATE)
+        HF2D_GFC_EXT_LAUNCH(gfc_closure_ext_kernel, BODY_STATE);
+    else if (c.closure)
+        return static_cast<int>(cudaErrorInvalidValue);
+    else if (c.euler && body == BODY_GENERAL)
+        HF2D_GFC_EXT_LAUNCH(gfc_euler_ext_kernel, BODY_GENERAL);
+    else if (c.euler && body == BODY_DUAL)
+        HF2D_GFC_EXT_LAUNCH(gfc_euler_ext_kernel, BODY_DUAL);
+    else if (c.euler && body == BODY_STATE)
+        HF2D_GFC_EXT_LAUNCH(gfc_euler_ext_kernel, BODY_STATE);
+    else if (c.euler)
+        return static_cast<int>(cudaErrorInvalidValue);
+    else if (form == XF_AXI && body == BODY_GENERAL)
+        HF2D_GFC_EXT_LAUNCH(gfc_axi_kernel, BODY_GENERAL);
+    else if (form == XF_AXI && body == BODY_SPEC)
+        HF2D_GFC_EXT_LAUNCH(gfc_axi_kernel, BODY_SPEC);
+    else if (form == XF_AXI && body == BODY_DUAL)
+        HF2D_GFC_EXT_LAUNCH(gfc_axi_kernel, BODY_DUAL);
+    else if (form == XF_AXI && body == BODY_STATE)
+        HF2D_GFC_EXT_LAUNCH(gfc_axi_kernel, BODY_STATE);
+    else if (form == XF_ALL && body == BODY_GENERAL)
+        HF2D_GFC_EXT_LAUNCH(gfc_ext_kernel, BODY_GENERAL);
+    else if (form == XF_ALL && body == BODY_SPEC)
+        HF2D_GFC_EXT_LAUNCH(gfc_ext_kernel, BODY_SPEC);
+    else if (form == XF_ALL && body == BODY_DUAL)
+        HF2D_GFC_EXT_LAUNCH(gfc_ext_kernel, BODY_DUAL);
+    else if (form == XF_ALL && body == BODY_STATE)
+        HF2D_GFC_EXT_LAUNCH(gfc_ext_kernel, BODY_STATE);
+    else
+        return static_cast<int>(cudaErrorInvalidValue);
+#undef HF2D_GFC_EXT_LAUNCH
+#undef HF2D_GFC_EXT_ARGS
+    return static_cast<int>(cudaGetLastError());
+}
 
 int hf2d_gfc_ext(int body, const void* consts, const void* cin, void* cout,
                  void* scr, const void* idn, const void* mf,
@@ -227,67 +295,10 @@ int hf2d_gfc_ext(int body, const void* consts, const void* cin, void* cout,
                  const void* dt, const void* aux, const void* tiles,
                  int n_tiles, const void* flags, void* part_i,
                  const void* src, void* stream) {
-    if (n_tiles == 0) return 0;
-    const ExtConsts c = *static_cast<const ExtConsts*>(consts);
-    if (c.wall_src && body != BODY_SPEC)
-        return hf2d_gfc_mw(body, consts, cin, cout, scr, idn, mf, ctxw,
-                           chemf, chemi, dt, aux, tiles, n_tiles, flags,
-                           part_i, src, stream);
-    const dim3 block(TILE_Y, TILE_X);
-    auto s = static_cast<cudaStream_t>(stream);
-#define HF2D_GFC_EXT_ARGS                                                    \
-    c, static_cast<const float*>(cin), static_cast<float*>(cout),           \
-        static_cast<float*>(scr), static_cast<const int8_t*>(idn),          \
-        static_cast<const float*>(mf), static_cast<const int32_t*>(ctxw),   \
-        static_cast<const float*>(chemf),                                   \
-        static_cast<const int32_t*>(chemi), static_cast<const float*>(dt), \
-        static_cast<const float*>(aux), static_cast<const int32_t*>(tiles), \
-        static_cast<const int32_t*>(flags), static_cast<int32_t*>(part_i),  \
-        static_cast<const float*>(src)
-    const int form = gfc_form(c);
-    if ((c.euler && c.closure) || form < 0)
-        return static_cast<int>(cudaErrorInvalidValue);
-    else if (c.closure && body == BODY_GENERAL)
-        gfc_closure_ext_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
-            HF2D_GFC_EXT_ARGS);
-    else if (c.closure && body == BODY_SPEC)
-        gfc_closure_ext_kernel<BODY_SPEC><<<n_tiles, block, 0, s>>>(
-            HF2D_GFC_EXT_ARGS);
-    else if (c.closure && body == BODY_DUAL)
-        gfc_closure_ext_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(
-            HF2D_GFC_EXT_ARGS);
-    else if (c.closure)
-        return static_cast<int>(cudaErrorInvalidValue);
-    else if (c.euler && body == BODY_GENERAL)
-        gfc_euler_ext_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
-            HF2D_GFC_EXT_ARGS);
-    else if (c.euler && body == BODY_DUAL)
-        gfc_euler_ext_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(
-            HF2D_GFC_EXT_ARGS);
-    else if (c.euler)
-        return static_cast<int>(cudaErrorInvalidValue);
-    else if (form == XF_AXI && body == BODY_GENERAL)
-        gfc_axi_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
-            HF2D_GFC_EXT_ARGS);
-    else if (form == XF_AXI && body == BODY_SPEC)
-        gfc_axi_kernel<BODY_SPEC><<<n_tiles, block, 0, s>>>(
-            HF2D_GFC_EXT_ARGS);
-    else if (form == XF_AXI && body == BODY_DUAL)
-        gfc_axi_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(
-            HF2D_GFC_EXT_ARGS);
-    else if (form == XF_ALL && body == BODY_GENERAL)
-        gfc_ext_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
-            HF2D_GFC_EXT_ARGS);
-    else if (form == XF_ALL && body == BODY_SPEC)
-        gfc_ext_kernel<BODY_SPEC><<<n_tiles, block, 0, s>>>(
-            HF2D_GFC_EXT_ARGS);
-    else if (form == XF_ALL && body == BODY_DUAL)
-        gfc_ext_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(
-            HF2D_GFC_EXT_ARGS);
-    else
-        return static_cast<int>(cudaErrorInvalidValue);
-#undef HF2D_GFC_EXT_ARGS
-    return static_cast<int>(cudaGetLastError());
+    if (body == BODY_STATE) return static_cast<int>(cudaErrorInvalidValue);
+    return hf2d_gfc_ext_state(body, consts, cin, cout, scr, idn, mf, ctxw,
+                              chemf, chemi, dt, aux, tiles, n_tiles, flags,
+                              part_i, src, nullptr, nullptr, 0, stream);
 }
 
 int hf2d_pass12_ext(int body, const void* consts, const void* cin,
@@ -351,12 +362,23 @@ int hf2d_div_jp1_check(const void* as, int n, int jp1_lo, int jp1_hi,
 // The kernel of stage 5 (gfc_ext, the all-features form), 6
 // (gfc_closure_ext), 7 (gfc_euler_ext), 8 (pass12_ext, the all-features
 // form), 9 (pass12_axi) or 10 (gfc_axi) and body
-// (BODY_GENERAL, BODY_SPEC or BODY_DUAL; the Euler form has no spec body),
+// (BODY_GENERAL, BODY_SPEC or BODY_DUAL; the Euler form has no spec body;
+// BODY_STATE for the gfc stages),
 // for fused_step.cu's hf2d_kernel_info; null for any other.
 const void* hf2d_ext_kernel_fn(int stage, int body) {
-    if (body != BODY_GENERAL && body != BODY_SPEC && body != BODY_DUAL)
+    if (body != BODY_GENERAL && body != BODY_SPEC && body != BODY_DUAL
+        && body != BODY_STATE)
         return nullptr;
     const bool spec = body == BODY_SPEC, dual = body == BODY_DUAL;
+    if (body == BODY_STATE) {   // gfc's state forms; pass12 has none
+        switch (stage) {
+            case 5: return (const void*)gfc_ext_kernel<BODY_STATE>;
+            case 6: return (const void*)gfc_closure_ext_kernel<BODY_STATE>;
+            case 7: return (const void*)gfc_euler_ext_kernel<BODY_STATE>;
+            case 10: return (const void*)gfc_axi_kernel<BODY_STATE>;
+            default: return nullptr;
+        }
+    }
     switch (stage) {
         case 5:
             return spec ? (const void*)gfc_ext_kernel<BODY_SPEC>

@@ -12,7 +12,8 @@
 //                                one extended feature is the moving-wall
 //                                sources (mw_flat)
 //
-// BODY is the general or the dual body: no spec tile holds a wall node,
+// BODY is the general or the dual body (gfc's also the state form of the
+// chunk's epilogue, BODY_STATE): no spec tile holds a wall node,
 // and in a spec body the moving-wall code compiles away, so a moving-wall
 // deck's spec tiles run the all-features forms' spec bodies
 // (fused_step_ext.cu, whose entries route them there).  Every gfc runs
@@ -60,7 +61,7 @@ __global__ void __launch_bounds__(CTA_THREADS, 3)
 gfc_mw_kernel(HF2D_GFC_PARAMS(ExtConsts), const float* __restrict__ srcp) {
     HF2D_COEF
     gfc_tile<BODY, false, false, XF_MW>(HF2D_GFC_FORWARD, srcp,
-                                        HF2D_COEF_PTR);
+                                        HF2D_COEF_PTR, st, part_dt, keep);
 }
 
 template <int BODY>
@@ -69,14 +70,15 @@ gfc_closure_mw_kernel(HF2D_GFC_PARAMS(ExtConsts),
                       const float* __restrict__ srcp) {
     HF2D_COEF
     gfc_tile<BODY, false, true, XF_MW>(HF2D_GFC_FORWARD, srcp,
-                                       HF2D_COEF_PTR);
+                                       HF2D_COEF_PTR, st, part_dt, keep);
 }
 
 template <int BODY>
 __global__ void __launch_bounds__(CTA_THREADS, 3)
 gfc_euler_mw_kernel(HF2D_GFC_PARAMS(ExtConsts),
                     const float* __restrict__ srcp) {
-    gfc_tile<BODY, true, false, XF_MW>(HF2D_GFC_FORWARD, srcp);
+    gfc_tile<BODY, true, false, XF_MW>(HF2D_GFC_FORWARD, srcp, nullptr, st,
+                                       part_dt, keep);
 }
 #undef HF2D_GFC_PARAMS
 #undef HF2D_GFC_FORWARD
@@ -118,10 +120,11 @@ pass12_mw_flat_kernel(const Consts c, const float* __restrict__ cin,
 }
 
 // ---------------------------------------------------------------------------
-// Entries: hf2d_gfc_ext / hf2d_pass12_ext (fused_step_ext.cu) hand the
-// general and dual launches of a deck with ExtConsts::wall_src to these,
-// with their own arguments; pass12's launches the flat form where mw_flat
-// takes the deck, else the all-features one.
+// Entries: hf2d_gfc_ext_state / hf2d_pass12_ext (fused_step_ext.cu) hand
+// the general and dual launches of a deck with ExtConsts::wall_src to
+// these (gfc's state launch too), with their own arguments; pass12's
+// launches the flat form where mw_flat takes the deck, else the
+// all-features one.
 // ---------------------------------------------------------------------------
 extern "C" {
 
@@ -130,46 +133,41 @@ int hf2d_gfc_mw(int body, const void* consts, const void* cin, void* cout,
                 const void* ctxw, const void* chemf, const void* chemi,
                 const void* dt, const void* aux, const void* tiles,
                 int n_tiles, const void* flags, void* part_i,
-                const void* src, void* stream) {
+                const void* src, void* st, void* part_dt, int keep,
+                void* stream) {
     const ExtConsts c = *static_cast<const ExtConsts*>(consts);
     const dim3 block(TILE_Y, TILE_X);
     auto s = static_cast<cudaStream_t>(stream);
-#define HF2D_GFC_MW_ARGS                                                     \
-    c, static_cast<const float*>(cin), static_cast<float*>(cout),           \
-        static_cast<float*>(scr), static_cast<const int8_t*>(idn),          \
-        static_cast<const float*>(mf), static_cast<const int32_t*>(ctxw),   \
-        static_cast<const float*>(chemf),                                   \
-        static_cast<const int32_t*>(chemi), static_cast<const float*>(dt), \
-        static_cast<const float*>(aux), static_cast<const int32_t*>(tiles), \
-        static_cast<const int32_t*>(flags), static_cast<int32_t*>(part_i),  \
-        static_cast<const float*>(src)
+#define HF2D_GFC_MW_LAUNCH(KERNEL, BODY)                                     \
+    KERNEL<BODY><<<n_tiles, block, 0, s>>>(HF2D_GFC_LAUNCH_ARGS(c),         \
+                                           static_cast<const float*>(src))
     if (!c.wall_src || (c.euler && c.closure))
         return static_cast<int>(cudaErrorInvalidValue);
     else if (c.closure && body == BODY_GENERAL)
-        gfc_closure_mw_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
-            HF2D_GFC_MW_ARGS);
+        HF2D_GFC_MW_LAUNCH(gfc_closure_mw_kernel, BODY_GENERAL);
     else if (c.closure && body == BODY_DUAL)
-        gfc_closure_mw_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(
-            HF2D_GFC_MW_ARGS);
+        HF2D_GFC_MW_LAUNCH(gfc_closure_mw_kernel, BODY_DUAL);
+    else if (c.closure && body == BODY_STATE)
+        HF2D_GFC_MW_LAUNCH(gfc_closure_mw_kernel, BODY_STATE);
     else if (c.closure)
         return static_cast<int>(cudaErrorInvalidValue);
     else if (c.euler && body == BODY_GENERAL)
-        gfc_euler_mw_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
-            HF2D_GFC_MW_ARGS);
+        HF2D_GFC_MW_LAUNCH(gfc_euler_mw_kernel, BODY_GENERAL);
     else if (c.euler && body == BODY_DUAL)
-        gfc_euler_mw_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(
-            HF2D_GFC_MW_ARGS);
+        HF2D_GFC_MW_LAUNCH(gfc_euler_mw_kernel, BODY_DUAL);
+    else if (c.euler && body == BODY_STATE)
+        HF2D_GFC_MW_LAUNCH(gfc_euler_mw_kernel, BODY_STATE);
     else if (c.euler)
         return static_cast<int>(cudaErrorInvalidValue);
     else if (body == BODY_GENERAL)
-        gfc_mw_kernel<BODY_GENERAL><<<n_tiles, block, 0, s>>>(
-            HF2D_GFC_MW_ARGS);
+        HF2D_GFC_MW_LAUNCH(gfc_mw_kernel, BODY_GENERAL);
     else if (body == BODY_DUAL)
-        gfc_mw_kernel<BODY_DUAL><<<n_tiles, block, 0, s>>>(
-            HF2D_GFC_MW_ARGS);
+        HF2D_GFC_MW_LAUNCH(gfc_mw_kernel, BODY_DUAL);
+    else if (body == BODY_STATE)
+        HF2D_GFC_MW_LAUNCH(gfc_mw_kernel, BODY_STATE);
     else
         return static_cast<int>(cudaErrorInvalidValue);
-#undef HF2D_GFC_MW_ARGS
+#undef HF2D_GFC_MW_LAUNCH
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -220,8 +218,17 @@ int hf2d_pass12_mw(int body, const void* consts, const void* cin,
 
 // The kernel of stage 11 (gfc_mw), 12 (gfc_closure_mw), 13 (gfc_euler_mw),
 // 14 (pass12_mw) or 19 (pass12_mw_flat) and body (BODY_GENERAL or
-// BODY_DUAL), for fused_step.cu's hf2d_kernel_info; null for any other.
+// BODY_DUAL; BODY_STATE for the gfc stages), for fused_step.cu's
+// hf2d_kernel_info; null for any other.
 const void* hf2d_mw_kernel_fn(int stage, int body) {
+    if (body == BODY_STATE) {   // gfc's state forms; pass12 has none
+        switch (stage) {
+            case 11: return (const void*)gfc_mw_kernel<BODY_STATE>;
+            case 12: return (const void*)gfc_closure_mw_kernel<BODY_STATE>;
+            case 13: return (const void*)gfc_euler_mw_kernel<BODY_STATE>;
+            default: return nullptr;
+        }
+    }
     if (body != BODY_GENERAL && body != BODY_DUAL) return nullptr;
     const bool dual = body == BODY_DUAL;
     switch (stage) {

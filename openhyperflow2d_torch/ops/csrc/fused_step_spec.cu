@@ -88,6 +88,7 @@ struct SpecOut {
     size_t P, n;
     int os, oa, ob, t;
     bool ga, gb;
+    HF2D_NO_STATE
     __device__ __forceinline__ void carry(int plane, float v) const {
         cout[plane * P + n] = v;
     }
@@ -114,6 +115,7 @@ struct SpecOut {
 struct RingOut {
     SpecTile* m;
     int os, oa, ob;
+    HF2D_NO_STATE
     __device__ __forceinline__ void carry(int, float) const {}
     __device__ __forceinline__ void scratch(int plane, float v) const {
         if (plane < SCR_A) {

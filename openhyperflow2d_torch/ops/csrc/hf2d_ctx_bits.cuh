@@ -101,6 +101,24 @@ constexpr int N_SCRATCH_AXI = SCR_F + 9;
 constexpr int SCR_MW = N_SCRATCH_AXI;
 constexpr int N_SCRATCH_MW = SCR_MW + 6;
 
+// ---- the state form's planes: (19, X, Y), SolverState field order -------
+// (the chunk's epilogue: gfc's gradients and lam_t, which no other form
+// keeps)
+constexpr int ST_DROYDX = 0;    // 4 planes
+constexpr int ST_DROYDY = 4;    // 4 planes
+constexpr int ST_DUDX = 8;
+constexpr int ST_DUDY = 9;
+constexpr int ST_DVDX = 10;
+constexpr int ST_DVDY = 11;
+constexpr int ST_DTDX = 12;
+constexpr int ST_DTDY = 13;
+constexpr int ST_DKDX = 14;
+constexpr int ST_DKDY = 15;
+constexpr int ST_DEPSDX = 16;
+constexpr int ST_DEPSDY = 17;
+constexpr int ST_LAM_T = 18;
+constexpr int N_STATE = 19;
+
 // ---- meta planes ----------------------------------------------------------
 constexpr int META_IDXL = 0;    // int8 (4, X, Y): idXl, idXr, idYu, idYd
 constexpr int META_BGX = 0;     // float (5, X, Y): BGX, BGY, Uw, Vw, l_min

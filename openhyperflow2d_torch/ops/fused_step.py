@@ -3,10 +3,17 @@
 Counterpart of ``openhyperflow2d_tpu/ops/pallas_step.py``:
 ``make_kernel_chunk`` has the prologue ``pass12``, the loop of K-iteration
 blocks and the epilogue ``gfc`` of ``make_pallas_chunk(fuse_iters=K)``
-(pallas_step.py:1069-1143).  The chunk's n - 1 kernel iterations run as
-``divmod(n - 1, K)`` blocks of K, then a block of the remainder
-(pallas_step.py:1099-1113).  Each block (``make_block``,
-pallas_step.py:925-1030)
+(pallas_step.py:1069-1143).  JAX runs the two ends in XLA
+(pallas_step.py:1085, 1116-1119); here they run on the kernels too: the
+prologue packs the state into the carry and the scratch
+(``FusedStep.pack_scratch``) and launches pass12 over every tile, the
+epilogue launches gfc's state form over every tile (``gfc_state``: the
+general body, which also keeps the gradients, lam_t and each tile's least
+dt) and heat_kernel with Q_conv, and assembles the SolverState from the
+launches' buffers (``KernelChunk.prologue``, ``epilogue``).  The chunk's
+n - 1 kernel iterations run as ``divmod(n - 1, K)`` blocks of K, then a
+block of the remainder (pallas_step.py:1099-1113).  Each block
+(``make_block``, pallas_step.py:925-1030)
 
 1. freezes dt from the carried primitives at its entry (``scan_dt``,
    pallas_step.py:859-871) for all its iterations: one iteration behind
@@ -28,7 +35,9 @@ pallas_step.py:925-1030)
    computes the conjugate wall heat source of its own node on decks with
    non-adiabatic walls next to solids (the heat stage folded; its
    separate form, ``heat_kernel`` between the two launches and
-   ``launch_pass12(..., fold=False)``, is an A/B candidate no path runs);
+   ``launch_pass12(..., fold=False)``, is an A/B candidate of the
+   iteration: heat_kernel runs in the epilogue, the unfolded pass12 in
+   the prologue);
 3. writes iteration i's per-tile partials into slot i of (K, tiles, ...)
    buffers and combines them once into the block's K rows of the RMS,
    DD_max, unstable and dt_overrun diags; its K ``dt_used`` are the frozen
@@ -84,8 +93,9 @@ even in a float64 run, as the TPU kernel's float32 scalar vector did
 heat stage, core/physics.calc_heat_on_wall_sources and core/step.pass12
 over the whole grid, ``pass12_plain`` with the heat source of
 ``heat_source_plain`` or a given one, returning the same planes and
-per-tile partials; ``step_spec_plain``, the spec tiles' fused stages as
-the kernel decomposes them).
+per-tile partials; ``gfc_state_plain``, gfc's fields with the state
+planes and the per-tile least dt; ``step_spec_plain``, the spec tiles'
+fused stages as the kernel decomposes them).
 A wrapper runs the plain version for CPU tensors and launches its kernel
 for CUDA tensors; there is no other fallback.
 
@@ -112,8 +122,7 @@ from ..core.state import (_CHEM_PROPS, _CHEM_SPECIES, ChemTables, GridMeta,
 from ..core.static_ctx import (_CTX_BOOL_PLANES, _CTX_BOOL_STACKS,
                                build_packed_ctx, build_static_ctx)
 from ..core.step import (SlimState, StepAux, expand, gfc, has_heat_stage,
-                         lam_t_const, make_aux, needs_y_plus, pass12,
-                         shrink)
+                         make_aux, needs_y_plus, pass12, shrink)
 
 # CTA tile (rows i, columns j); csrc/hf2d_ctx_bits.cuh TILE_X / TILE_Y
 TILE = (8, 32)
@@ -144,12 +153,13 @@ _PRIMS = 18   # carry planes from here on are written by gfc
 # the kernels the solver's paths launch (on Euler decks gfc_euler_kernel
 # in place of gfc_kernel: the general body's Euler form; on NS decks with
 # any closure but standard k-eps a closures' form, CLOSURE_FORMS; pass12
-# has neither);
+# has neither; heat_kernel, the heat stage as a launch of its own, in the
+# chunk's epilogue: in the iterations it is folded into pass12's general
+# body, which saves the launch and the SrcAdd plane's round trip and won
+# the A/B on an H100);
 # then the forms no path launches, which stay as chip_smoke.py's A/B
-# candidates: heat_kernel, the heat stage as a launch of its own (folded
-# into pass12's general body, it saves the launch and the SrcAdd plane's
-# round trip and won the A/B on an H100), and the general body on staged
-# windows, which lost to the general body on an H100 (PERF.md, Findings)
+# candidates: the general body on staged windows, which lost to the
+# general body on an H100 (PERF.md, Findings)
 NS_KERNEL_NAMES = ("gfc_kernel<spec>", "gfc_kernel<general>",
                    "pass12_kernel<spec>", "pass12_kernel<general>",
                    "gfc_kernel<dual>", "pass12_kernel<dual>")
@@ -200,10 +210,22 @@ MW_KERNEL_NAMES = tuple(
                                        "pass12_mw_kernel",
                                        "pass12_mw_flat_kernel")
     for body in ("general", "dual"))
+# the chunk's epilogue: every gfc kernel's general body in its state form
+# (``body="state"``, fused_step.cuh BODY_STATE: over every tile, also the
+# gradients, lam_t and each tile's least dt), the one of the deck's form
+# (``FusedStep.gfc_name("state")``), then heat_kernel with Q_conv on decks
+# with the heat stage
+STATE_KERNEL_NAMES = tuple(
+    f"{kernel}<state>" for kernel in (
+        "gfc_kernel", "gfc_euler_kernel", *CLOSURE_FORMS.values(),
+        "gfc_axi_kernel", "gfc_ext_kernel", "gfc_closure_ext_kernel",
+        "gfc_euler_ext_kernel", "gfc_mw_kernel", "gfc_closure_mw_kernel",
+        "gfc_euler_mw_kernel"))
 PATH_KERNEL_NAMES = (NS_KERNEL_NAMES + (SPEC_KERNEL,) + EULER_KERNEL_NAMES
                      + CLOSURE_KERNEL_NAMES + EXT_KERNEL_NAMES
-                     + MW_KERNEL_NAMES)
-KERNEL_NAMES = PATH_KERNEL_NAMES + ("heat_kernel", "gfc_kernel<staged>",
+                     + MW_KERNEL_NAMES + STATE_KERNEL_NAMES
+                     + ("heat_kernel",))
+KERNEL_NAMES = PATH_KERNEL_NAMES + ("gfc_kernel<staged>",
                                     "pass12_kernel<staged>")
 DISPATCH_FORMS = ("lists", "dual")
 # "lists": on an H100 the dual form never beat it on the 2048^2
@@ -211,7 +233,14 @@ DISPATCH_FORMS = ("lists", "dual")
 # (PERF.md, Findings)
 DEFAULT_DISPATCH = "lists"
 _BODY_CODE = {"general": 0, "spec": 1, "dual": 2,
-              "staged": 3}   # fused_step.cu BODY_*
+              "staged": 3, "state": 4}   # fused_step.cuh BODY_*
+# the state form's planes (19, X, Y) (csrc/hf2d_ctx_bits.cuh ST_*): the
+# SolverState fields gfc computes that no other form keeps
+STATE_FIELDS = (("droYdx", 4), ("droYdy", 4), ("dUdx", 1), ("dUdy", 1),
+                ("dVdx", 1), ("dVdy", 1), ("dTdx", 1), ("dTdy", 1),
+                ("dkdx", 1), ("dkdy", 1), ("depsdx", 1), ("depsdy", 1),
+                ("lam_t", 1))
+N_STATE = sum(n for _, n in STATE_FIELDS)
 # tile subsets of a strip plan (make_tile_plan's ``halo``): "edge" holds
 # every tile with a row in the two halos or in the halo's width of own rows
 # next to them, and every spec tile beside a general tile of those (whose
@@ -385,6 +414,43 @@ def pack_carry(slim: SlimState) -> torch.Tensor:
         t = getattr(slim, name)
         parts.append(t if n > 1 else t[None])
     return torch.cat(parts)
+
+
+def state_views(st: torch.Tensor) -> dict:
+    """{SolverState field: view} of the state form's (19, X, Y) planes."""
+    kw, o = {}, 0
+    for name, n in STATE_FIELDS:
+        kw[name] = st[o:o + n] if n > 1 else st[o]
+        o += n
+    return kw
+
+
+def state_fields(params) -> tuple:
+    """The STATE_FIELDS gfc's state form stores on a deck: core/step.gfc
+    computes the others nowhere on it, so they stay the expanded state's
+    zeros, lam_t the state's own (lam_t_const).  None on an Euler deck
+    (outside SM_NS); dkdx and dkdy with k-eps or SA, depsdx and depsdy
+    with k-eps alone."""
+    p = params
+    if is_euler(p):
+        return ()
+    drop = set()
+    if "keps" not in p.models and "sa" not in p.models:
+        drop |= {"dkdx", "dkdy"}
+    if "keps" not in p.models:
+        drop |= {"depsdx", "depsdy"}
+    return tuple(name for name, _ in STATE_FIELDS if name not in drop)
+
+
+def state_keep(params) -> int:
+    """The bits of the state planes (csrc/hf2d_ctx_bits.cuh ST_*) the
+    state form stores on a deck (``state_fields``): StateOut's ``keep``."""
+    kept, bits, o = state_fields(params), 0, 0
+    for name, n in STATE_FIELDS:
+        if name in kept:
+            bits |= ((1 << n) - 1) << o
+        o += n
+    return bits
 
 
 # ---------------------------------------------------------------------------
@@ -669,12 +735,16 @@ def heat_node_map(ctx) -> np.ndarray:
 
 
 def _tile_reduce(x: torch.Tensor, plan: TilePlan, op: str) -> torch.Tensor:
-    """(..., X, Y) -> (n_tiles, ...) per-tile sum or max (padding adds 0)."""
+    """(..., X, Y) -> (n_tiles, ...) per-tile sum, max or min (padding
+    adds 0 to a sum or a max, 1 to a min: the dt field's value off the
+    active nodes)."""
     TX, TY = TILE
     lead_shape = x.shape[:-2]
-    xp = F.pad(x, (0, plan.nby * TY - plan.Y, 0, plan.nbx * TX - plan.X))
+    pads = (0, plan.nby * TY - plan.Y, 0, plan.nbx * TX - plan.X)
+    xp = F.pad(x, pads, value=1.0) if op == "min" else F.pad(x, pads)
     xp = xp.reshape(*lead_shape, plan.nbx, TX, plan.nby, TY)
-    r = xp.sum(dim=(-3, -1)) if op == "sum" else xp.amax(dim=(-3, -1))
+    r = (xp.sum(dim=(-3, -1)) if op == "sum" else xp.amax(dim=(-3, -1))
+         if op == "max" else xp.amin(dim=(-3, -1)))
     return r.reshape(*lead_shape, plan.n_tiles).movedim(-1, 0)
 
 
@@ -847,7 +917,8 @@ class FusedStep:
     launches, nowhere else).  ``dispatch`` is the form gfc and pass12 are
     issued in (DISPATCH_FORMS).  With the heat stage, pass12's general
     body computes its nodes' heat source itself: an iteration launches no
-    heat_kernel (``iteration_launches``).  On an Euler deck gfc is
+    heat_kernel (``iteration_launches``); the chunk's epilogue does
+    (``end_launches``).  On an Euler deck gfc is
     ``gfc_euler_kernel`` and reads lam_t from meta plane META_LAM_T, which
     the chunk sets from its state (``set_lam_t``).  On an NS deck with a
     closure other than standard k-eps (``is_closure``) gfc is its
@@ -915,6 +986,12 @@ class FusedStep:
         # (X, 1) rows of the window, for the plain versions' partials
         rows = torch.arange(p.MaxX, device=meta.CT.device)[:, None]
         self.own = (rows >= plan.window[0]) & (rows < plan.window[1])
+        # the state form's tile table: every tile (T4's launch), and the
+        # state planes it stores
+        self.all_tiles = torch.arange(plan.n_tiles, dtype=torch.int32,
+                                      device=meta.CT.device)
+        self.state_fields = state_fields(p)
+        self.state_keep = state_keep(p)
         self.launches = dict.fromkeys(KERNEL_NAMES, 0)
 
     def reset_launches(self) -> None:
@@ -974,6 +1051,54 @@ class FusedStep:
         form = ("all" if self.pass12_form in ("mw", "mw_flat")
                 and body == "spec" else self.pass12_form)
         return f"{PASS12_FORMS[form]}<{body}>"
+
+    def end_launches(self) -> tuple:
+        """The kernels a chunk launches outside its iterations (no launch
+        needs CUDA to be planned): (the prologue's pass12 launches over
+        every tile, the epilogue's: gfc's state form, then heat_kernel
+        with the heat stage)."""
+        return ([self.pass12_name(b) for b in self._bodies()],
+                [self.gfc_name("state")]
+                + (["heat_kernel"] if self.has_heat else []))
+
+    def chunk_launches(self, n_iters: int) -> dict:
+        """{kernel: launches} of a KernelChunk of ``n_iters`` iterations:
+        its prologue, n_iters - 1 kernel iterations
+        (``iteration_launches``), its epilogue (``end_launches``)."""
+        first, last = self.end_launches()
+        out = {}
+        for names, k in ((first, 1), (self.iteration_launches(),
+                                      n_iters - 1), (last, 1)):
+            for name in names:
+                out[name] = out.get(name, 0) + k
+        return out
+
+    def pack_scratch(self, state: SolverState) -> torch.Tensor:
+        """The gfc -> pass12 scratch (n_scratch planes) of a SolverState:
+        the inverse of gfc's plane map (``_put_gfc``), so that pass12 reads
+        the state's own fields: S, A and B, Src's k and eps slots; with the
+        heat stage lam + lam_t at SCR_LAM_EFF and SrcAdd[rhoE] at
+        SCR_SRCADD_E (the unfolded pass12 reads it); F's own planes on an
+        axisymmetric deck (the others are A and B floats, radial_fluxes);
+        the moving-wall SrcAdd planes.  Planes no launch reads are NaN."""
+        scr = torch.empty((n_scratch(self.params),) + state.S.shape[1:],
+                          dtype=state.S.dtype, device=state.S.device)
+        planes = {SCR_S: state.S, SCR_A: state.A, SCR_B: state.B,
+                  SCR_SRC_K: state.Src[fl.i2d_k:]}
+        if self.has_heat:
+            planes[SCR_LAM_EFF] = (state.lam + state.lam_t)[None]
+            planes[SCR_SRCADD_E] = state.SrcAdd[fl.i2d_RhoE][None]
+        if self.axi:
+            for e in F_OWN:
+                planes[SCR_F + e] = state.F[e][None]
+        if self.mw:
+            planes[SCR_MW] = state.SrcAdd[list(MW_EQ)]
+        unread = set(range(scr.shape[0]))
+        for q, v in planes.items():
+            scr[q:q + v.shape[0]] = v
+            unread -= set(range(q, q + v.shape[0]))
+        scr[sorted(unread)] = float("nan")
+        return scr
 
     def iteration_launches(self) -> list:
         """The kernels one iteration launches, in order (no launch needs
@@ -1057,17 +1182,20 @@ class FusedStep:
             self._launch("hf2d_gfc", self.gfc_name(body), args)
 
     def launch_pass12(self, body, cin, cout, scr, dt, aux, part_f,
-                      part=None, fold=True):
+                      part=None, fold=True, src=None):
         """One pass12_kernel instantiation over its tiles, or over its
         tiles of ``part`` (CUDA tensors).  ``fold=False``: the general
-        body reads the heat source from scratch plane SCR_SRCADD_E, which
-        heat_kernel wrote (the separate form, for the A/B; the staged body
-        always reads it)."""
+        body reads the heat source from scratch plane SCR_SRCADD_E (which
+        heat_kernel wrote, the separate form of the A/B, or the chunk's
+        prologue packed from its state; the staged body always reads it).
+        ``src``: the source field its extended forms read (default the
+        chunk's, ``set_src``)."""
         if self.pass12_ext and body == "staged":
             raise NotImplementedError(
                 f"{self.pass12_name(body)} has no staged body (the staged "
                 f"form is an A/B candidate of the standard k-eps decks)")
-        self._check_cuda(cin, cout, scr, dt, aux, part_f, self.src)
+        src = self.src if src is None else src
+        self._check_cuda(cin, cout, scr, dt, aux, part_f, src)
         tiles, n_tiles = self.plan.launch_grid(body, part)
         consts = self.consts if fold else self.consts_unfolded
         args = (_BODY_CODE[body], ctypes.addressof(consts), _ptr(cin),
@@ -1076,7 +1204,7 @@ class FusedStep:
                 _ptr(part_f))
         if self.pass12_ext:
             self._launch("hf2d_pass12_ext", self.pass12_name(body),
-                         args + (_ptr(self.src),))
+                         args + (_ptr(src),))
         else:
             self._launch("hf2d_pass12", self.pass12_name(body), args)
 
@@ -1100,13 +1228,32 @@ class FusedStep:
             _ptr(aux), _ptr(aux_next), tiles, n_tiles,
             _ptr(self.plan.edge_flags), _ptr(part_i), _ptr(part_f)))
 
-    def launch_heat(self, cout, scr, dt):
-        """heat_kernel over the heat tiles (CUDA tensors)."""
-        self._check_cuda(cout, scr, dt)
+    def launch_gfc_state(self, cin, cout, scr, st, dt, aux, part_i,
+                         part_dt):
+        """The state form of the deck's gfc (``gfc_name("state")``: the
+        general body over every tile) (CUDA tensors): gfc's outputs, the
+        planes of ``state_fields`` in ``st`` (N_STATE planes; the others
+        untouched) and each tile's least node dt into ``part_dt``
+        (n_tiles)."""
+        self._check_cuda(cin, cout, scr, st, dt, aux, part_dt, self.mf,
+                         self.chemf, self.src)
+        self._launch("hf2d_gfc_state", self.gfc_name("state"), (
+            ctypes.addressof(self.consts), _ptr(cin), _ptr(cout), _ptr(scr),
+            _ptr(self.idn), _ptr(self.mf), _ptr(self.ctxw), _ptr(self.chemf),
+            _ptr(self.chemi), _ptr(dt), _ptr(aux), _ptr(self.all_tiles),
+            self.plan.n_tiles, _ptr(part_i), _ptr(self.src), _ptr(st),
+            _ptr(part_dt), self.state_keep))
+
+    def launch_heat(self, cout, scr, dt, q_conv=None):
+        """heat_kernel over the heat tiles (CUDA tensors); ``q_conv``:
+        also the (X, Y) Q_conv plane at their nodes."""
+        self._check_cuda(cout, scr, dt,
+                         *(() if q_conv is None else (q_conv,)))
         tiles = self.plan.heat_tiles
         self._launch("hf2d_heat", "heat_kernel", (
             ctypes.addressof(self.consts), _ptr(cout), _ptr(scr),
-            _ptr(self.ctxw), _ptr(dt), _ptr(tiles), tiles.numel()))
+            _ptr(self.ctxw), _ptr(dt), _ptr(tiles), tiles.numel(),
+            None if q_conv is None else _ptr(q_conv)))
 
     def gfc(self, cin, cout, scr, dt, aux, part_i, bodies=None):
         """gfc_kernel: gradients, fill, dt field and chemistry of iteration
@@ -1120,14 +1267,49 @@ class FusedStep:
         for body in self._bodies(bodies=bodies):
             self.launch_gfc(body, cin, cout, scr, dt, aux, part_i)
 
+    def pass12_state(self, cin, cout, scr, dt, aux, part_f, src=None):
+        """pass12 of the chunk's prologue: the dispatch form's launches over
+        every tile from the state packed into ``cin`` and ``scr``
+        (``pack_scratch``), in the unfolded form (the heat source is the
+        state's SrcAdd[rhoE], scratch plane SCR_SRCADD_E) on the source
+        field ``src`` (the state's Src; default the chunk's).  A wrapper of
+        its own: routing the iterations' ``pass12`` elsewhere leaves it."""
+        if cin.device.type == "cpu":
+            return self.pass12_plain(cin, cout, scr, dt, aux, part_f,
+                                     fold=False, src=src)
+        for body in self._bodies():
+            self.launch_pass12(body, cin, cout, scr, dt, aux, part_f,
+                               fold=False, src=src)
+
+    def gfc_state(self, cin, cout, scr, st, dt, aux, part_i, part_dt):
+        """gfc of the chunk's last iteration over every tile in its state
+        form: ``gfc``'s outputs for the whole grid, and what the chunk
+        returns besides them: the gradients and lam_t the deck computes
+        into the state planes ``st`` (``state_fields`` of STATE_FIELDS; the
+        others untouched), each tile's least node dt (over the window's
+        rows; 1 off the active nodes) into ``part_dt``."""
+        if cin.device.type == "cpu":
+            return self.gfc_state_plain(cin, cout, scr, st, dt, aux, part_i,
+                                        part_dt)
+        self.launch_gfc_state(cin, cout, scr, st, dt, aux, part_i, part_dt)
+
     def heat(self, cout, scr, dt):
         """heat_kernel (the separate form of the heat stage): the
         conjugate wall-heat source SrcAdd[rhoE] of iteration k into scratch
-        plane SCR_SRCADD_E, from gfc's Tg in ``cout`` and lam_eff in
-        scratch plane SCR_LAM_EFF."""
+        plane SCR_SRCADD_E at the wall gas nodes, from gfc's Tg in ``cout``
+        and lam_eff in scratch plane SCR_LAM_EFF."""
         if cout.device.type == "cpu":
             return self.heat_plain(cout, scr, dt)
         self.launch_heat(cout, scr, dt)
+
+    def heat_state(self, cout, scr, dt, q_conv):
+        """heat_kernel in the chunk's epilogue: ``heat``'s SrcAdd[rhoE]
+        and the wall heat flux Q_conv into the (X, Y) plane ``q_conv`` at
+        the nodes of the heat tiles (calc_heat_on_wall_sources' Q_conv;
+        the plane's other nodes keep their zeros)."""
+        if cout.device.type == "cpu":
+            return self.heat_plain(cout, scr, dt, q_conv)
+        self.launch_heat(cout, scr, dt, q_conv)
 
     def pass12(self, cin, cout, scr, dt, aux, part_f, part=None,
                bodies=None):
@@ -1197,10 +1379,12 @@ class FusedStep:
         it, else None (zeros)."""
         return self.mf[META_Y_PLUS] if self.has_y_plus else None
 
-    def _gfc_fields(self, cin, dt, aux):
+    def _gfc_fields(self, cin, dt, aux, dt_min=False):
         """core/step.gfc of carry ``cin`` over the whole grid (no heat
         stage): (its output state, the per-tile (Tg<0, dt overrun) counts
-        of the window's rows, (n_tiles, 2))."""
+        of the window's rows, (n_tiles, 2)); ``dt_min``: and each tile's
+        least node dt over the window's rows (the dt field: 1 off the
+        active nodes), (n_tiles,)."""
         full = expand(carry_views(cin, dt), self.params, self.src,
                       y_plus=self.y_plus(), lam_t=self.lam_t())
         out, dt_field, unstable = gfc(full, self.meta, self.params,
@@ -1212,7 +1396,10 @@ class FusedStep:
                          "sum"),
             _tile_reduce(((dt > dt_field) & self.own).to(torch.int32),
                          self.plan, "sum")], 1).to(torch.int32)
-        return out, counts
+        if not dt_min:
+            return out, counts
+        return out, counts, _tile_reduce(
+            torch.where(self.own, dt_field, 1.0), self.plan, "min")
 
     def _tiles_of(self, bodies, part=None) -> torch.Tensor:
         """The tile ids of the launches of ``bodies`` (of ``part``), long."""
@@ -1223,6 +1410,24 @@ class FusedStep:
         """``bodies``: write the nodes and counts of these tile lists only
         (what their launches write; default: the whole grid)."""
         out, counts = self._gfc_fields(cin, dt, aux)
+        self._put_gfc(out, counts, cout, scr, part_i, bodies)
+
+    def gfc_state_plain(self, cin, cout, scr, st, dt, aux, part_i,
+                        part_dt):
+        """The state form's plain version: core/step.gfc's fields over
+        the whole grid, gfc_plain's planes, the state planes of
+        ``state_fields`` and the per-tile least dt (``_gfc_fields``)."""
+        out, counts, dt_min = self._gfc_fields(cin, dt, aux, dt_min=True)
+        self._put_gfc(out, counts, cout, scr, part_i)
+        views = state_views(st)
+        for name in self.state_fields:
+            views[name][...] = getattr(out, name)
+        part_dt[:] = dt_min
+
+    def _put_gfc(self, out, counts, cout, scr, part_i, bodies=None):
+        """gfc's output state ``out`` into the scratch and carry planes
+        its kernels write, its counts into ``part_i``, at the nodes of
+        ``bodies``' tiles (default: the whole grid)."""
         planes = {0: out.S, 9: out.A, 18: out.B,
                   # k and eps, or SA's nu_t (elsewhere the source field's,
                   # or 0)
@@ -1284,29 +1489,37 @@ class FusedStep:
         cout[0:18] = torch.where(own, torch.cat([S_c, beta_c]), cout[0:18])
         part_f[tiles] = new_f[tiles]
 
-    def heat_source_plain(self, cout, scr, dt) -> torch.Tensor:
+    def heat_source_plain(self, cout, scr, dt, q_conv=False):
         """(X, Y) SrcAdd[rhoE] of calc_heat_on_wall_sources on gfc's
         outputs: Tg of ``cout`` and lam_eff as lam with lam_t = 0 (lam_eff
-        + 0 is lam_eff)."""
+        + 0 is lam_eff); ``q_conv``: (it, its Q_conv)."""
         p = self.params
         zero = torch.zeros_like(scr[SCR_LAM_EFF])
         state = expand(carry_views(cout, dt), p, self.zero_src,
                        lam_t=zero).replace(lam=scr[SCR_LAM_EFF])
         out = calc_heat_on_wall_sources(state, self.meta, p, ctx=self.ctx)
+        if q_conv:
+            return out.SrcAdd[fl.i2d_RhoE], out.Q_conv
         return out.SrcAdd[fl.i2d_RhoE]
 
-    def heat_plain(self, cout, scr, dt):
-        scr[SCR_SRCADD_E] = self.heat_source_plain(cout, scr, dt)
+    def heat_plain(self, cout, scr, dt, q_conv=None):
+        src_e, q = self.heat_source_plain(cout, scr, dt, q_conv=True)
+        scr[SCR_SRCADD_E] = src_e
+        if q_conv is not None:
+            q_conv[...] = q
 
     def pass12_plain(self, cin, cout, scr, dt, aux, part_f, part=None,
-                     heat_src=None, bodies=None):
+                     heat_src=None, bodies=None, fold=True, src=None):
         """``heat_src``: the (X, Y) SrcAdd[rhoE] to add with the heat
         stage (default: heat_source_plain of ``cout`` and ``scr``, the folded
-        form).  ``part``, ``bodies``: compute the whole grid, write the
-        nodes and partials of the tiles of that part and of those lists
-        only (what their launches write)."""
+        form; ``fold=False``: scratch plane SCR_SRCADD_E).  ``part``,
+        ``bodies``: compute the whole grid, write the nodes and partials of
+        the tiles of that part and of those lists only (what their launches
+        write).  ``src``: the source field (default the chunk's)."""
+        if heat_src is None and not fold:
+            heat_src = scr[SCR_SRCADD_E]
         S_c, beta_c, new_f = self._pass12_fields(cin, cout, scr, dt, aux,
-                                                 heat_src)
+                                                 heat_src, src=src)
         if part is None and bodies is None:
             cout[0:9] = S_c
             cout[9:18] = beta_c
@@ -1318,14 +1531,16 @@ class FusedStep:
         part_f[tiles] = new_f[tiles]
 
     def _pass12_fields(self, cin, cout, scr, dt, aux, heat_src=None,
-                       add=True):
+                       add=True, src=None):
         """core/step.pass12 over the whole grid from the scratch ``scr``
         and the carry ``cin``: (S, beta, per-tile partials (n_tiles, 27)).
         ``add``: with the heat stage's and the moving walls' SrcAdd (the
         heat source of ``heat_src``, else heat_source_plain of ``cout`` and
-        ``scr``)."""
+        ``scr``).  ``src``: the source field whose planes 0-6 pass 1 adds
+        (default the chunk's)."""
         p = self.params
-        src = torch.cat([self.src[:fl.i2d_k], scr[27:29]])
+        src = self.src if src is None else src
+        src = torch.cat([src[:fl.i2d_k], scr[27:29]])
         state = expand(carry_views(cin, dt), p, src).replace(
             S=scr[0:9], A=scr[9:18], B=scr[18:27])
         if self.axi:
@@ -1443,10 +1658,15 @@ class KernelChunk:
     """chunk(state, n_iters, start_iter, src_ext) -> (state', diags) on the
     kernel path (make_pallas_chunk's interface).  ``fuse_iters`` (K): the
     kernel iterations run in blocks of K on one frozen dt (fuse_blocks).
-    An iteration launches ``step.iteration_launches()``: gfc, then pass12
-    (with the heat stage folded into its general body), the spec tiles'
-    two in one where ``spec_fused``.  The scratch starts as NaN, so a
-    value no launch wrote shows where it is read."""
+    The prologue is pass12's launches over every tile from the state
+    packed into the carry and the scratch (``prologue``); an iteration
+    launches ``step.iteration_launches()``: gfc, then pass12 (with the heat
+    stage folded into its general body), the spec tiles' two in one where
+    ``spec_fused``; the epilogue is gfc's state form over every tile, then
+    heat_kernel with Q_conv where the deck has the heat stage
+    (``epilogue``).  No stage runs the plain versions on CUDA tensors.  The
+    loop's scratch starts as NaN, so a value no launch wrote shows where it
+    is read."""
 
     def __init__(self, meta, params, chem, beta_tab, cfl_tab, turb_start,
                  spec_map=None, dispatch="lists", fuse_iters=1):
@@ -1467,35 +1687,115 @@ class KernelChunk:
         return make_aux(self.beta_tab, self.cfl_tab, self.turb_start, it,
                         self.params.torch_dtype)
 
-    def prologue(self, state: SolverState, n_iters: int, start_iter: int):
+    def prologue(self, state: SolverState, n_iters: int, start_iter: int,
+                 buffers: bool = False):
         """Iteration start_iter's pass12 (the fluxes are already in
-        ``state``) and the chunk's per-iteration scalars.  Returns (carry,
-        pass12 diag, StepAux of iterations start_iter.., kernel scalar
-        rows): row b holds (beta_scen, cfl_scen, is_mu_t) of iteration
-        start_iter + b, rounded through float32 as the TPU kernel's scalar
-        vector was (a no-op in a float32 run)."""
-        p, dtype = self.params, self.params.torch_dtype
-        S_c, beta_c, _, _, diag0 = pass12(state, self.meta, p,
-                                          self.aux_at(start_iter),
-                                          ctx=self.step.ctx)
-        carry = pack_carry(shrink(state.replace(S=S_c, beta=beta_c)))
+        ``state``) and the chunk's per-iteration scalars: the state packed
+        into a carry (``pack_carry``) and a scratch
+        (``FusedStep.pack_scratch``), then pass12's launches over every
+        tile with dt = state.dt, the heat source read from the state's
+        SrcAdd[rhoE] (the unfolded form: the state comes from the last
+        chunk, build_case, a checkpoint or a swap resume) and, on a deck
+        with sources, the state's own Src, as core/step.pass12 reads them;
+        its diag from the per-tile partials.  It reads nothing the chunk
+        sets per state (``set_lam_t``, ``set_y_plus``, ``set_src``).
+        Returns (carry, pass12 diag, StepAux of iterations start_iter..,
+        kernel scalar rows): row b holds (beta_scen, cfl_scen, is_mu_t) of
+        iteration start_iter + b, rounded through float32 as the TPU
+        kernel's scalar vector was (a no-op in a float32 run); with
+        ``buffers`` also (the other carry buffer, the scratch, the
+        unrounded rows), which the chunk's iterations and epilogue take, as
+        core/step takes make_aux's scalars."""
+        p, step = self.params, self.step
+        dtype = p.torch_dtype
         raw = self.aux_at(torch.arange(start_iter, start_iter + n_iters))
-        kaux = torch.stack([raw.beta_scen, raw.cfl_scen,
+        rows = torch.stack([raw.beta_scen, raw.cfl_scen,
                             raw.is_mu_t_iter.to(dtype)], 1)
-        return carry, diag0, raw, kaux.to(torch.float32).to(dtype)
+        cin = pack_carry(shrink(state))
+        cout = torch.empty_like(cin)
+        cout[_PRIMS:] = cin[_PRIMS:]
+        scr = step.pack_scratch(state)
+        part_f = torch.empty((self.plan.n_tiles, 27), dtype=dtype,
+                             device=cin.device)
+        src = (state.Src.to(dtype).contiguous() if p.has_ext_src
+               else None)
+        step.pass12_state(cin, cout, scr, state.dt, rows[0], part_f, src)
+        nsum, dsum = part_f[:, 0:9].sum(0), part_f[:, 9:18].sum(0)
+        diag0 = {"RMS": rms_of(nsum, dsum, p),
+                 "DD_max": part_f[:, 18:27].amax(0), "dt_used": state.dt}
+        kaux = rows.to(torch.float32).to(dtype)
+        if not buffers:
+            return cout, diag0, raw, kaux
+        return cout, diag0, raw, kaux, cin, scr, rows
+
+    def epilogue(self, ca, cb, scr, dt, state: SolverState, row):
+        """Iteration ``row``'s gfc on carry ``ca`` in its state form over
+        every tile (into ``cb``, ``scr`` and the state planes), then the
+        heat stage with Q_conv where the deck has it, both with the block's
+        ``dt``.  Returns (SolverState, Tg<0 flag): every field of
+        core/step.gfc's, as views of the launches' buffers where the field
+        is a plane of one (S, A, B of the scratch, beta of ``ca``, the
+        primitives of ``cb``, the state planes of ``state_fields``), the
+        zeros of ``expand`` where gfc computes none (dSdx, dSdy, F on a
+        flat deck, the gradients outside ``state_fields``), the state's
+        own lam_t where gfc keeps it (an Euler deck: lam_t_const), Src and
+        SrcAdd assembled from their planes, y+ passed through; dt =
+        serial_dt(min(1, the least node dt), dt)."""
+        p, step, plan = self.params, self.step, self.plan
+        X, Y = ca.shape[1:]
+        st = torch.empty((N_STATE, X, Y), dtype=ca.dtype, device=ca.device)
+        part_i = torch.empty((plan.n_tiles, 2), dtype=torch.int32,
+                             device=ca.device)
+        part_dt = torch.empty(plan.n_tiles, dtype=ca.dtype, device=ca.device)
+        step.gfc_state(ca, cb, scr, st, dt, row, part_i, part_dt)
+        z1 = torch.zeros((X, Y), dtype=ca.dtype, device=ca.device)
+        z9 = z1.expand(fl.NUM_EQ, X, Y)
+        q_conv = z1
+        if step.has_heat:
+            q_conv = torch.zeros_like(z1)
+            scr[SCR_SRCADD_E] = 0.0
+            step.heat_state(cb, scr, dt, q_conv)
+        src_add = z9
+        if step.has_heat or step.mw:
+            planes = [z1] * fl.NUM_EQ
+            if step.has_heat:
+                planes[fl.i2d_RhoE] = scr[SCR_SRCADD_E]
+            if step.mw:
+                for k, e in enumerate(MW_EQ):
+                    planes[e] = scr[SCR_MW + k]
+            src_add = torch.stack(planes)
+        prims = carry_views(cb, dt)
+        views = state_views(st)
+        kept = {name: views[name] if name in step.state_fields
+                else z1.expand(n, X, Y) if n > 1 else z1
+                for name, n in STATE_FIELDS}
+        if "lam_t" not in step.state_fields:
+            kept["lam_t"] = state.lam_t
+        out = SolverState(
+            S=scr[SCR_S:SCR_S + 9], beta=ca[CARRY["beta"]:CARRY["beta"] + 9],
+            A=scr[SCR_A:SCR_A + 9], B=scr[SCR_B:SCR_B + 9],
+            F=radial_fluxes(scr) if step.axi else z9, dSdx=z9, dSdy=z9,
+            Src=torch.cat([step.src[:fl.i2d_k], scr[SCR_SRC_K:SCR_SRC_EPS + 1]]),
+            SrcAdd=src_add, y_plus=state.y_plus, Q_conv=q_conv,
+            dt=serial_dt(part_dt.amin().clamp_max(1.0), dt, p),
+            **{f: getattr(prims, f) for f in ("U", "V", "p", "Tg", "Yc", "R",
+                                              "CP", "lam", "mu", "mu_t")},
+            **kept)
+        return out, part_i[:, 0].sum() > 0
 
     def __call__(self, state: SolverState, n_iters: int, start_iter: int,
                  src_ext=None):
-        p, meta, step = self.params, self.meta, self.step
+        p, step = self.params, self.step
         dtype = p.torch_dtype
         ctx = step.ctx
         step.set_lam_t(state.lam_t)
         step.set_y_plus(state.y_plus)
         step.set_src(src_ext)
-        ca, diag0, raw, kaux = self.prologue(state, n_iters, start_iter)
-        cb = torch.empty_like(ca)
-        scr = torch.full((n_scratch(p),) + ca.shape[1:], float("nan"),
-                         dtype=dtype, device=ca.device)
+        ca, diag0, raw, kaux, cb, scr, rows = self.prologue(
+            state, n_iters, start_iter, buffers=True)
+        # the loop's scratch starts as NaN, as pack_scratch left the planes
+        # the prologue must not read
+        scr.fill_(float("nan"))
         # slot i holds iteration i of a block
         part_f = torch.zeros((self.K, self.plan.n_tiles, 27), dtype=dtype,
                              device=ca.device)
@@ -1516,15 +1816,7 @@ class KernelChunk:
             blocks.append((*combine(part_f[:kk], part_i[:kk], p),
                            dt.expand(kk)))
 
-        # epilogue: the final iteration's gfc on the whole grid
-        full = expand(carry_views(ca, dt), p, step.src,
-                      step.y_plus(), lam_t_const(state, p))
-        out, dt_new, unstable_last = gfc(full, meta, p, self.chem,
-                                         self.aux_at(start_iter + n_iters - 1),
-                                         ctx=ctx)
-        # beta is the only carry view that passes through gfc unchanged
-        out = out.replace(dt=dt_new, y_plus=state.y_plus,
-                          beta=out.beta.clone())
+        out, unstable_last = self.epilogue(ca, cb, scr, dt, state, rows[-1])
         return out, chunk_diags(diag0, blocks, unstable_last)
 
 
