@@ -1362,6 +1362,104 @@ class FusedStep:
                     bodies=("general",))
 
     # ------------------------------------------------------------------
+    # a chunk's two ends, over this step's grid: the whole grid or an
+    # extended X strip (KernelChunk, parallel/shard_step.KernelShardChunk)
+    # ------------------------------------------------------------------
+    def pack_state(self, state: SolverState, halo: int = 0):
+        """The prologue's buffers of a SolverState: (carry (``pack_carry``),
+        the other carry buffer holding its primitives, scratch
+        (``pack_scratch``), the state's Src on a deck with sources, else
+        None); ``halo``: with that many zero columns on each side of X (an
+        X strip's own state over its extended strip)."""
+        src = (state.Src.to(self.params.torch_dtype).contiguous()
+               if self.params.has_ext_src else None)
+        cin = pack_carry(shrink(state))
+        scr = self.pack_scratch(state)
+        if halo:
+            cin, scr = (F.pad(t, (0, 0, halo, halo)) for t in (cin, scr))
+            src = None if src is None else F.pad(src, (0, 0, halo, halo))
+        cout = torch.empty_like(cin)
+        cout[_PRIMS:] = cin[_PRIMS:]
+        return cin, cout, scr, src
+
+    def run_prologue(self, cin, cout, scr, dt, row, src=None):
+        """The prologue's pass12 (``pass12_state``) over every tile of the
+        packed buffers with dt = the state's; returns its per-tile partials
+        (n_tiles, 27), the window's rows only, which the caller reduces."""
+        part_f = torch.empty((self.plan.n_tiles, 27), dtype=cin.dtype,
+                             device=cin.device)
+        self.pass12_state(cin, cout, scr, dt, row, part_f, src)
+        return part_f
+
+    def run_epilogue(self, ca, cb, scr, dt, row):
+        """The epilogue's launches on carry ``ca`` with the block's ``dt``:
+        gfc's state form over every tile (into ``cb``, ``scr`` and new
+        state planes), then, with the heat stage, heat_kernel with Q_conv
+        from a zero SrcAdd[rhoE] plane.  Returns (state planes (N_STATE, X,
+        Y), Q_conv plane or None without the heat stage, per-tile (Tg<0,
+        dt overrun) counts, per-tile least dt), the partials of the
+        window's rows only, which the caller reduces."""
+        X, Y = ca.shape[1:]
+        st = torch.empty((N_STATE, X, Y), dtype=ca.dtype, device=ca.device)
+        part_i = torch.empty((self.plan.n_tiles, 2), dtype=torch.int32,
+                             device=ca.device)
+        part_dt = torch.empty(self.plan.n_tiles, dtype=ca.dtype,
+                              device=ca.device)
+        self.gfc_state(ca, cb, scr, st, dt, row, part_i, part_dt)
+        q_conv = None
+        if self.has_heat:
+            q_conv = torch.zeros((X, Y), dtype=ca.dtype, device=ca.device)
+            scr[SCR_SRCADD_E] = 0.0
+            self.heat_state(cb, scr, dt, q_conv)
+        return st, q_conv, part_i, part_dt
+
+    def end_state(self, ca, cb, scr, st, q_conv, dt, lam_t, y_plus,
+                  crop=None) -> SolverState:
+        """The SolverState of the epilogue's buffers (``run_epilogue``)
+        with the fresh ``dt``: every field of core/step.gfc's, as views of
+        the buffers where the field is a plane of one (S, A, B of the
+        scratch, beta of ``ca``, the primitives of ``cb``, the state planes
+        of ``state_fields``), the zeros of ``expand`` where gfc computes
+        none (dSdx, dSdy, F on a flat deck, the gradients outside
+        ``state_fields``), ``lam_t`` where gfc keeps the state's (an Euler
+        deck: lam_t_const), Src and SrcAdd assembled from their planes,
+        ``y_plus`` passed through.  ``crop``: applied to every plane of the
+        buffers (an X strip's own columns); ``lam_t`` and ``y_plus`` are
+        already of its shape."""
+        crop = crop or (lambda a: a)
+        z1 = torch.zeros(crop(ca[0]).shape, dtype=ca.dtype, device=ca.device)
+        X, Y = z1.shape
+        z9 = z1.expand(fl.NUM_EQ, X, Y)
+        src_add = z9
+        if self.has_heat or self.mw:
+            planes = [z1] * fl.NUM_EQ
+            if self.has_heat:
+                planes[fl.i2d_RhoE] = crop(scr[SCR_SRCADD_E])
+            if self.mw:
+                for k, e in enumerate(MW_EQ):
+                    planes[e] = crop(scr[SCR_MW + k])
+            src_add = torch.stack(planes)
+        prims = carry_views(crop(cb), dt)
+        views = state_views(crop(st))
+        kept = {name: views[name] if name in self.state_fields
+                else z1.expand(n, X, Y) if n > 1 else z1
+                for name, n in STATE_FIELDS}
+        if "lam_t" not in self.state_fields:
+            kept["lam_t"] = lam_t
+        beta = CARRY["beta"]
+        return SolverState(
+            S=crop(scr[SCR_S:SCR_S + 9]), beta=crop(ca[beta:beta + 9]),
+            A=crop(scr[SCR_A:SCR_A + 9]), B=crop(scr[SCR_B:SCR_B + 9]),
+            F=crop(radial_fluxes(scr)) if self.axi else z9, dSdx=z9,
+            dSdy=z9, Src=crop(torch.cat([self.src[:fl.i2d_k],
+                                         scr[SCR_SRC_K:SCR_SRC_EPS + 1]])),
+            SrcAdd=src_add, y_plus=y_plus,
+            Q_conv=z1 if q_conv is None else crop(q_conv), dt=dt,
+            **{f: getattr(prims, f) for f in ("U", "V", "p", "Tg", "Yc", "R",
+                                              "CP", "lam", "mu", "mu_t")},
+            **kept)
+
+    # ------------------------------------------------------------------
     # plain versions
     # ------------------------------------------------------------------
     @staticmethod
@@ -1711,15 +1809,8 @@ class KernelChunk:
         raw = self.aux_at(torch.arange(start_iter, start_iter + n_iters))
         rows = torch.stack([raw.beta_scen, raw.cfl_scen,
                             raw.is_mu_t_iter.to(dtype)], 1)
-        cin = pack_carry(shrink(state))
-        cout = torch.empty_like(cin)
-        cout[_PRIMS:] = cin[_PRIMS:]
-        scr = step.pack_scratch(state)
-        part_f = torch.empty((self.plan.n_tiles, 27), dtype=dtype,
-                             device=cin.device)
-        src = (state.Src.to(dtype).contiguous() if p.has_ext_src
-               else None)
-        step.pass12_state(cin, cout, scr, state.dt, rows[0], part_f, src)
+        cin, cout, scr, src = step.pack_state(state)
+        part_f = step.run_prologue(cin, cout, scr, state.dt, rows[0], src)
         nsum, dsum = part_f[:, 0:9].sum(0), part_f[:, 9:18].sum(0)
         diag0 = {"RMS": rms_of(nsum, dsum, p),
                  "DD_max": part_f[:, 18:27].amax(0), "dt_used": state.dt}
@@ -1732,55 +1823,16 @@ class KernelChunk:
         """Iteration ``row``'s gfc on carry ``ca`` in its state form over
         every tile (into ``cb``, ``scr`` and the state planes), then the
         heat stage with Q_conv where the deck has it, both with the block's
-        ``dt``.  Returns (SolverState, Tg<0 flag): every field of
-        core/step.gfc's, as views of the launches' buffers where the field
-        is a plane of one (S, A, B of the scratch, beta of ``ca``, the
-        primitives of ``cb``, the state planes of ``state_fields``), the
-        zeros of ``expand`` where gfc computes none (dSdx, dSdy, F on a
-        flat deck, the gradients outside ``state_fields``), the state's
-        own lam_t where gfc keeps it (an Euler deck: lam_t_const), Src and
-        SrcAdd assembled from their planes, y+ passed through; dt =
+        ``dt`` (``FusedStep.run_epilogue``).  Returns (SolverState, Tg<0
+        flag): every field of core/step.gfc's (``FusedStep.end_state``, the
+        state's own lam_t where gfc keeps it, y+ passed through) with dt =
         serial_dt(min(1, the least node dt), dt)."""
-        p, step, plan = self.params, self.step, self.plan
-        X, Y = ca.shape[1:]
-        st = torch.empty((N_STATE, X, Y), dtype=ca.dtype, device=ca.device)
-        part_i = torch.empty((plan.n_tiles, 2), dtype=torch.int32,
-                             device=ca.device)
-        part_dt = torch.empty(plan.n_tiles, dtype=ca.dtype, device=ca.device)
-        step.gfc_state(ca, cb, scr, st, dt, row, part_i, part_dt)
-        z1 = torch.zeros((X, Y), dtype=ca.dtype, device=ca.device)
-        z9 = z1.expand(fl.NUM_EQ, X, Y)
-        q_conv = z1
-        if step.has_heat:
-            q_conv = torch.zeros_like(z1)
-            scr[SCR_SRCADD_E] = 0.0
-            step.heat_state(cb, scr, dt, q_conv)
-        src_add = z9
-        if step.has_heat or step.mw:
-            planes = [z1] * fl.NUM_EQ
-            if step.has_heat:
-                planes[fl.i2d_RhoE] = scr[SCR_SRCADD_E]
-            if step.mw:
-                for k, e in enumerate(MW_EQ):
-                    planes[e] = scr[SCR_MW + k]
-            src_add = torch.stack(planes)
-        prims = carry_views(cb, dt)
-        views = state_views(st)
-        kept = {name: views[name] if name in step.state_fields
-                else z1.expand(n, X, Y) if n > 1 else z1
-                for name, n in STATE_FIELDS}
-        if "lam_t" not in step.state_fields:
-            kept["lam_t"] = state.lam_t
-        out = SolverState(
-            S=scr[SCR_S:SCR_S + 9], beta=ca[CARRY["beta"]:CARRY["beta"] + 9],
-            A=scr[SCR_A:SCR_A + 9], B=scr[SCR_B:SCR_B + 9],
-            F=radial_fluxes(scr) if step.axi else z9, dSdx=z9, dSdy=z9,
-            Src=torch.cat([step.src[:fl.i2d_k], scr[SCR_SRC_K:SCR_SRC_EPS + 1]]),
-            SrcAdd=src_add, y_plus=state.y_plus, Q_conv=q_conv,
-            dt=serial_dt(part_dt.amin().clamp_max(1.0), dt, p),
-            **{f: getattr(prims, f) for f in ("U", "V", "p", "Tg", "Yc", "R",
-                                              "CP", "lam", "mu", "mu_t")},
-            **kept)
+        p = self.params
+        st, q_conv, part_i, part_dt = self.step.run_epilogue(ca, cb, scr, dt,
+                                                             row)
+        dt_new = serial_dt(part_dt.amin().clamp_max(1.0), dt, p)
+        out = self.step.end_state(ca, cb, scr, st, q_conv, dt_new,
+                                  state.lam_t, state.y_plus)
         return out, part_i[:, 0].sum() > 0
 
     def __call__(self, state: SolverState, n_iters: int, start_iter: int,

@@ -36,9 +36,13 @@ count the own columns only.
 
 The state of this path is a ``StripState``: one SolverState per shard this
 process holds, over its own columns.  No process holds the whole grid on
-its device: the prologue ``pass12`` and the epilogue ``gfc`` run on each
+its device: a chunk's prologue ``pass12`` and epilogue ``gfc`` run on each
 extended strip after one exchange of the fields they read, the port's form
-of JAX's globally sharded arrays.
+of JAX's globally sharded arrays (shard_step.py:597, :629).  The kernel
+chunk runs them on the kernels, the state forms a single domain's chunk
+runs (``KernelShardChunk.start``/``finish`` over ``FusedStep.pack_state``,
+``run_prologue``, ``run_epilogue`` and ``end_state``); the eager chunk on
+core/step (``_StripChunk.prologue``/``epilogue``).
 """
 
 from __future__ import annotations
@@ -54,10 +58,11 @@ from ..core.state import GridMeta, SolverState
 from ..core.static_ctx import build_static_ctx, generic_interior_map
 from ..core.step import (expand, gfc, has_heat_stage, lead, make_aux,
                          needs_y_plus, pass12, shrink, trail)
-from ..ops.fused_step import (FusedStep, carry_views, chunk_diags,
-                              fuse_blocks, halo_depth, heat_node_map,
-                              is_euler, local_dt, make_tile_plan, n_scratch,
-                              pack_carry, rms_of, serial_dt, tile_totals)
+from ..ops.fused_step import (SCR_B, SCR_S, FusedStep, carry_views,
+                              chunk_diags, fuse_blocks, halo_depth,
+                              heat_node_map, is_euler, local_dt,
+                              make_tile_plan, pack_carry, rms_of, serial_dt,
+                              tile_totals)
 
 META_FIELDS = [f.name for f in dataclasses.fields(GridMeta)
                if f.name not in ("dx_map", "dy_map")]
@@ -76,7 +81,8 @@ class StripState:
 
 class _StripChunk:
     """What both strip chunks share: the layout, the extended meta and
-    static ctx of each strip, the prologue and the epilogue.  ``H`` is
+    static ctx of each strip, the halo exchange and the reductions across
+    strips; and the eager path's prologue and epilogue.  ``H`` is
     the halo_depth, ``K`` the iterations between two exchanges, ``halo``
     = H K the halo's columns on each side."""
 
@@ -286,7 +292,10 @@ class _StripChunk:
         """pass12 of iteration start_iter on each extended strip, after one
         exchange of S, A and B (what it reads at the neighbours); the other
         fields' halos are zero (read at the node only).  Returns (each
-        strip's own carry (31, X_loc, Y), pass12 diag)."""
+        strip's own carry (31, X_loc, Y), pass12 diag).  The eager strip
+        path's (ShardChunk), core/step.pass12 on every strip: the plain
+        version KernelShardChunk.start is held against (CPU tests,
+        chip_smoke.py's check_strip_ends), which no kernel chunk runs."""
         sab = self.extend([torch.cat([st.S, st.A, st.B])
                            for st in state.strips])
         outs, fields = [], []
@@ -313,7 +322,10 @@ class _StripChunk:
         """gfc of iteration ``it`` (with its heat stage) on each extended
         carry, halos filled; ``lam``, ``yp``, ``src``: the strips'
         ``lam_ext``, ``yp_ext`` and ``src_ext`` (None: made here, src the
-        zeros); returns (StripState, dt_new, unstable)."""
+        zeros); returns (StripState, dt_new, unstable).  The eager strip
+        path's, core/step.gfc on every strip: the plain version
+        KernelShardChunk.finish is held against, which no kernel chunk
+        runs."""
         if lam is None:
             lam = self.lam_ext(state)
         if yp is None:
@@ -412,7 +424,10 @@ class KernelShardChunk(_StripChunk):
     ``steps``: one FusedStep per strip held here, each with its own tile
     plan over the extended strip (its spec map from the strip's extended
     meta, global edges zeroed), the window of its own columns, and its
-    edge and inner parts at the halo's width."""
+    edge and inner parts at the halo's width.  Both ends run on the
+    kernels (``start``, ``finish``): no core/step stage runs from it on
+    CUDA tensors.  The returned strips are views of a call's buffers, and
+    every call allocates its own."""
 
     def __init__(self, *args, dispatch: str = "lists",
                  overlap: bool = False, fuse_iters: int = 1):
@@ -452,19 +467,45 @@ class KernelShardChunk(_StripChunk):
         for s in self.steps:
             s.reset_launches()
 
-    def start(self, state: StripState, n_iters: int, start_iter: int):
-        """The prologue and the chunk's per-iteration scalars: (each strip's
-        extended carry, its halos filled, pass12 diag, StepAux of iterations
-        start_iter.., kernel scalar rows rounded through float32, as
-        KernelChunk.prologue rounds them)."""
-        dtype = self.params.torch_dtype
-        own, diag0 = self.prologue(state, start_iter)
+    def start(self, state: StripState, n_iters: int, start_iter: int,
+              buffers: bool = False):
+        """The prologue on the kernels and the chunk's per-iteration
+        scalars.  Each strip's own state is packed over its extended strip
+        (``FusedStep.pack_state``, zero halos), the halos of the scratch's
+        S, A and B are filled from the neighbours (the planes pass12 reads
+        off the node, STAGE_PLANES["pass12"]; the eager prologue exchanges
+        the same), pass12's launches run over every tile of each strip
+        (``FusedStep.run_prologue``: partials of the own columns only),
+        and one sum and one max across strips give its diag.  Returns
+        (each strip's extended carry, its halos filled, pass12 diag,
+        StepAux of iterations start_iter.., kernel scalar rows rounded
+        through float32, as KernelChunk.prologue rounds them); with
+        ``buffers`` also (each strip's other carry buffer, its scratch,
+        the unrounded rows)."""
+        p = self.params
+        dtype = p.torch_dtype
         raw = self.aux_at(torch.arange(start_iter, start_iter + n_iters))
-        kaux = torch.stack([raw.beta_scen, raw.cfl_scen,
+        rows = torch.stack([raw.beta_scen, raw.cfl_scen,
                             raw.is_mu_t_iter.to(dtype)], 1)
-        ca = [F.pad(c, (0, 0, self.halo, self.halo)) for c in own]
+        packed = [step.pack_state(st, self.halo)
+                  for step, st in zip(self.steps, state.strips)]
+        self.fill_halos([scr[SCR_S:SCR_B + 9] for _, _, scr, _ in packed])
+        part_f = [step.run_prologue(cin, cout, scr, st.dt, rows[0], src)
+                  for step, st, (cin, cout, scr, src) in zip(
+                      self.steps, state.strips, packed)]
+        sums = self.comm.all_sum([torch.cat([f[:, 0:9].sum(0),
+                                             f[:, 9:18].sum(0)])
+                                  for f in part_f])[0]
+        ddm = self.comm.all_max([f[:, 18:27].amax(0) for f in part_f])[0]
+        diag0 = {"RMS": rms_of(sums[:9], sums[9:], p), "DD_max": ddm,
+                 "dt_used": state.strips[0].dt}
+        ca = [cout for _, cout, _, _ in packed]
         self.fill_halos(ca)
-        return ca, diag0, raw, kaux.to(torch.float32).to(dtype)
+        kaux = rows.to(torch.float32).to(dtype)
+        if not buffers:
+            return ca, diag0, raw, kaux
+        return (ca, diag0, raw, kaux, [cin for cin, _, _, _ in packed],
+                [scr for _, _, scr, _ in packed], rows)
 
     def frozen_dt(self, ca, dt_prev, cfl_scen):
         """A block's dt from the extended carries, their halos filled: each
@@ -486,10 +527,12 @@ class KernelShardChunk(_StripChunk):
         return (rms_of(sums[..., :9], sums[..., 9:], p), ddm,
                 counts[..., 0] > 0, counts[..., 1] > 0, dt.expand(kk))
 
-    def __call__(self, state: StripState, n_iters: int, start_iter: int,
-                 src_ext=None):
-        p, dtype = self.params, self.params.torch_dtype
-        ca, diag0, raw, kaux = self.start(state, n_iters, start_iter)
+    def stage_planes(self, state: StripState, src_ext=None):
+        """Set each strip's chunk-constant planes from ``state`` and the
+        chunk's source field (whole grid): lam_t on an Euler deck, y+
+        where the closure reads it, the sources, each over its extended
+        strip.  Returns them as the eager epilogue takes them (lam, yp,
+        src)."""
         lam, yp = self.lam_ext(state), self.yp_ext(state)
         srcs = self.src_ext(src_ext)
         for step, lam_t, y_plus, src_k in zip(self.steps, lam, yp, srcs):
@@ -498,13 +541,41 @@ class KernelShardChunk(_StripChunk):
             if y_plus is not None:
                 step.set_y_plus(y_plus)
             step.set_src(src_k)
-        dev, Y, K = self.comm.device, p.MaxY, self.K
-        cb = [torch.empty_like(c) for c in ca]
-        scr, part_f, part_i = [], [], []
-        for step in self.steps:
+        return lam, yp, srcs
+
+    def finish(self, ca, cb, scr, dt, state: StripState, row):
+        """The epilogue on the kernels: each strip's gfc state form over
+        every tile of its extended carry ``ca`` (halos filled) with the
+        block's ``dt``, then heat_kernel with Q_conv on a strip with the
+        heat stage (``FusedStep.run_epilogue``; their partials count the
+        own columns only); dt from the least node dt across strips, the
+        Tg<0 flag one max across strips; each strip's SolverState cropped
+        to its own columns (``FusedStep.end_state``: the strip's own lam_t
+        where gfc keeps it, its y+ passed through).  Returns (StripState,
+        dt_new, unstable)."""
+        ends = [step.run_epilogue(a, b, s, dt, row)
+                for step, a, b, s in zip(self.steps, ca, cb, scr)]
+        dt_new = self.global_dt([part_dt.amin().clamp_max(1.0)
+                                 for _, _, _, part_dt in ends], dt)
+        unstable = self.comm.all_max([part_i[:, 0].sum()
+                                      for _, _, part_i, _ in ends])[0] > 0
+        strips = [step.end_state(a, b, s, st_planes, q_conv, dt_new,
+                                 st.lam_t, st.y_plus, crop=self.crop)
+                  for step, a, b, s, (st_planes, q_conv, _, _), st in zip(
+                      self.steps, ca, cb, scr, ends, state.strips)]
+        return StripState(strips), dt_new, unstable
+
+    def __call__(self, state: StripState, n_iters: int, start_iter: int,
+                 src_ext=None):
+        dtype = self.params.torch_dtype
+        ca, diag0, raw, kaux, cb, scr, rows = self.start(
+            state, n_iters, start_iter, buffers=True)
+        self.stage_planes(state, src_ext)
+        dev, K = self.comm.device, self.K
+        part_f, part_i = [], []
+        for step, s in zip(self.steps, scr):
             # NaN: a value no launch wrote shows where it is read
-            scr.append(torch.full((n_scratch(p), self.Xext, Y), float("nan"),
-                                  dtype=dtype, device=dev))
+            s.fill_(float("nan"))
             # slot i holds iteration i of a block
             part_f.append(torch.zeros((K, step.plan.n_tiles, 27),
                                       dtype=dtype, device=dev))
@@ -543,9 +614,8 @@ class KernelShardChunk(_StripChunk):
         if pending is not None:
             pending.wait()
 
-        out, _, unstable_last = self.epilogue(ca, dt, state,
-                                              start_iter + n_iters - 1, lam,
-                                              yp, srcs)
+        out, _, unstable_last = self.finish(ca, cb, scr, dt, state,
+                                            rows[-1])
         return out, chunk_diags(diag0, blocks, unstable_last)
 
 
