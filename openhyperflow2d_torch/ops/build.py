@@ -27,6 +27,8 @@ from contextlib import contextmanager
 from dataclasses import dataclass
 from pathlib import Path
 
+from ..spans import span
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "hf2d_torch"
 LIB_NAME = "libhf2d_kernels.so"
@@ -184,7 +186,8 @@ def load_kernels() -> KernelLib:
     process."""
     global _LOADED
     if _LOADED is None:
-        _LOADED = load_library()
+        with span("kernels.load"):
+            _LOADED = load_library()
     return _LOADED
 
 

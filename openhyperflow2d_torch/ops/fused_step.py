@@ -123,6 +123,7 @@ from ..core.static_ctx import (_CTX_BOOL_PLANES, _CTX_BOOL_STACKS,
                                build_packed_ctx, build_static_ctx)
 from ..core.step import (SlimState, StepAux, expand, gfc, has_heat_stage,
                          make_aux, needs_y_plus, pass12, shrink)
+from ..spans import span
 
 # CTA tile (rows i, columns j); csrc/hf2d_ctx_bits.cuh TILE_X / TILE_Y
 TILE = (8, 32)
@@ -1840,36 +1841,43 @@ class KernelChunk:
         p, step = self.params, self.step
         dtype = p.torch_dtype
         ctx = step.ctx
-        step.set_lam_t(state.lam_t)
-        step.set_y_plus(state.y_plus)
-        step.set_src(src_ext)
-        ca, diag0, raw, kaux, cb, scr, rows = self.prologue(
-            state, n_iters, start_iter, buffers=True)
-        # the loop's scratch starts as NaN, as pack_scratch left the planes
-        # the prologue must not read
-        scr.fill_(float("nan"))
-        # slot i holds iteration i of a block
-        part_f = torch.zeros((self.K, self.plan.n_tiles, 27), dtype=dtype,
-                             device=ca.device)
-        part_i = torch.zeros((self.K, self.plan.n_tiles, 2),
-                             dtype=torch.int32, device=ca.device)
+        with span("chunk.prologue"):
+            step.set_lam_t(state.lam_t)
+            step.set_y_plus(state.y_plus)
+            step.set_src(src_ext)
+            ca, diag0, raw, kaux, cb, scr, rows = self.prologue(
+                state, n_iters, start_iter, buffers=True)
+            # the loop's scratch starts as NaN, as pack_scratch left the
+            # planes the prologue must not read
+            scr.fill_(float("nan"))
+            # slot i holds iteration i of a block
+            part_f = torch.zeros((self.K, self.plan.n_tiles, 27),
+                                 dtype=dtype, device=ca.device)
+            part_i = torch.zeros((self.K, self.plan.n_tiles, 2),
+                                 dtype=torch.int32, device=ca.device)
 
         dt = state.dt
         blocks = []
-        for b0, kk in fuse_blocks(n_iters, self.K):
-            dt = scan_dt(carry_views(ca, dt), ctx.active, p, raw.cfl_scen[b0])
-            # the kernels take dt through float32 too (see prologue)
-            dt_k = dt.to(torch.float32).to(dtype)
-            for i, b in enumerate(range(b0, b0 + kk)):
-                step.path_gfc(ca, cb, scr, dt_k, kaux[b], part_i[i])
-                step.path_pass12(ca, cb, scr, dt_k, kaux[b], kaux[b + 1],
-                                 part_i[i], part_f[i])
-                ca, cb = cb, ca
-            blocks.append((*combine(part_f[:kk], part_i[:kk], p),
-                           dt.expand(kk)))
+        for j, (b0, kk) in enumerate(fuse_blocks(n_iters, self.K)):
+            with span("chunk.scan_dt", block=j):
+                dt = scan_dt(carry_views(ca, dt), ctx.active, p,
+                             raw.cfl_scen[b0])
+                # the kernels take dt through float32 too (see prologue)
+                dt_k = dt.to(torch.float32).to(dtype)
+            with span("chunk.block", block=j, iters=kk):
+                for i, b in enumerate(range(b0, b0 + kk)):
+                    step.path_gfc(ca, cb, scr, dt_k, kaux[b], part_i[i])
+                    step.path_pass12(ca, cb, scr, dt_k, kaux[b],
+                                     kaux[b + 1], part_i[i], part_f[i])
+                    ca, cb = cb, ca
+            with span("chunk.combine", block=j):
+                blocks.append((*combine(part_f[:kk], part_i[:kk], p),
+                               dt.expand(kk)))
 
-        out, unstable_last = self.epilogue(ca, cb, scr, dt, state, rows[-1])
-        return out, chunk_diags(diag0, blocks, unstable_last)
+        with span("chunk.epilogue"):
+            out, unstable_last = self.epilogue(ca, cb, scr, dt, state,
+                                               rows[-1])
+            return out, chunk_diags(diag0, blocks, unstable_last)
 
 
 def make_kernel_chunk(meta: GridMeta, params: SolverParams, chem: ChemTables,

@@ -36,6 +36,7 @@ from ..geometry.wall import (get_wall_nodes, set_init_boundary_layer,
                              set_wall_nodes)
 from ..io_out.swapfile import (NODE_SIZE, grid_from_swap, read_swap_file,
                                swap_size_matches)
+from ..spans import span
 
 Y_FUEL = (1.0, 0.0, 0.0, 0.0)
 Y_OX = (0.0, 1.0, 0.0, 0.0)
@@ -602,7 +603,8 @@ def build_case(deck: Deck, dtype: str = "float64",
             set_init_boundary_layer(grid, delta_bl)   # InitDEEPS2D:4647
             # (l_min still the domain-size init here, as in the reference)
         wall_nodes = get_wall_nodes(grid)
-        set_min_distance_to_wall(grid, wall_nodes)
+        with span("case.wall_distance", wall_nodes=len(wall_nodes)):
+            set_min_distance_to_wall(grid, wall_nodes)
         recalc_y_plus(grid)
         if not preload:
             set_init_boundary_layer(grid, delta_bl)   # hf2d_start.cpp:132

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import os
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -26,6 +26,7 @@ from ..core.step import make_fast_chunk
 from ..ops.fused_step import DEFAULT_DISPATCH, make_kernel_chunk
 from ..parallel.multihost import gather_to_host
 from ..parallel.shard_step import make_kernel_shard_chunk, make_shard_chunk
+from .. import spans
 from .init import Case, chem_tables_device
 
 
@@ -88,9 +89,6 @@ def _y_plus(st, m, u_map, Y: int):
 @dataclass
 class RunStats:
     iters: int = 0
-    global_time: float = 0.0
-    rms_history: list = field(default_factory=list)   # (iter, RMS[9])
-    monitors: list = field(default_factory=list)
     steps_per_sec: float = 0.0
     unstable: bool = False
     # kernel path only: a frozen dt exceeded some node's freshly computed
@@ -130,6 +128,12 @@ class Solver:
     def __init__(self, case: Case, device=None, use_kernels: bool = None,
                  dispatch: str = None, comm=None, overlap: bool = False,
                  fuse_iters: int = 1):
+        with spans.span("solver.init"):
+            self._setup(case, device, use_kernels, dispatch, comm, overlap,
+                        fuse_iters)
+
+    def _setup(self, case, device, use_kernels, dispatch, comm, overlap,
+               fuse_iters):
         p = case.params
         check_supported(p)
         if comm is not None:
@@ -263,29 +267,36 @@ class Solver:
     def run_iters(self, n_iters: int):
         """Run ``n_iters`` inner iterations; returns the stacked diagnostics
         as numpy arrays (reading them waits for the device)."""
-        state, diags = self._chunk_fn(self.state, n_iters, self.last_iter,
-                                      self._src_ext)
+        with spans.span("solver.chunk", iters=n_iters):
+            state, diags = self._chunk_fn(self.state, n_iters,
+                                          self.last_iter, self._src_ext)
         self.state = state
         self.last_iter += n_iters
-        diags = {k: v.cpu().numpy() for k, v in diags.items()}
+        with spans.span("solver.fetch"):
+            diags = {k: v.cpu().numpy() for k, v in diags.items()}
         self.current_time_part += float(diags["dt_used"].sum())
         return diags
 
     def run_cycle(self):
         """One outer cycle = Nstep inner iterations + host-side bookkeeping.
-        Returns (diags, seconds)."""
-        t0 = time.time()
-        diags = self.run_iters(self.case.Nstep)
-        dt_wall = time.time() - t0
-        self.global_time += self.current_time_part
-        self.current_time_part = 0.0
-        self.stats.iters = self.last_iter
-        self.stats.steps_per_sec = self.case.Nstep / max(dt_wall, 1e-9)
-        self.stats.unstable = bool(diags["unstable"].any())
-        ovr = diags.get("dt_overrun")
-        self.stats.dt_overrun = bool(ovr.any()) if ovr is not None else False
-        if self.params.sm == fl.SM_NS and len(self.case.wall_nodes):
-            self.recalc_y_plus()
+        Returns (diags, seconds of ``run_iters`` on the monotonic clock
+        of the spans)."""
+        n = self.case.Nstep
+        with spans.span("solver.cycle", cycle=self.last_iter, iters=n):
+            t0 = time.perf_counter_ns()
+            diags = self.run_iters(n)
+            dt_wall = (time.perf_counter_ns() - t0) * 1e-9
+            self.global_time += self.current_time_part
+            self.current_time_part = 0.0
+            self.stats.iters = self.last_iter
+            self.stats.steps_per_sec = n / max(dt_wall, 1e-9)
+            self.stats.unstable = bool(diags["unstable"].any())
+            ovr = diags.get("dt_overrun")
+            self.stats.dt_overrun = (bool(ovr.any()) if ovr is not None
+                                     else False)
+            if self.params.sm == fl.SM_NS and len(self.case.wall_nodes):
+                with spans.span("solver.y_plus"):
+                    self.recalc_y_plus()
         return diags, dt_wall
 
     def recalc_y_plus(self):
@@ -429,16 +440,24 @@ def profile_solver(solver, n_iters: int = 50, trace_dir: str = "hf2d_trace"):
     """Trace the inner loop with torch.profiler (JAX runner.py:375-381):
     ``run_iters(2)`` first (the kernels build and load), then a CPU and,
     on a CUDA solver, CUDA trace of ``run_iters(n_iters)``, written under
-    ``trace_dir`` as a Chrome trace.  Returns the trace file's path."""
+    ``trace_dir`` as a Chrome trace; the solver's spans (``spans``) are on
+    for the traced call, so the trace shows its steps.  Returns the trace
+    file's path."""
     solver.run_iters(2)
     acts = [torch.profiler.ProfilerActivity.CPU]
     dev = solver.device
     if dev.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
-        solver.run_iters(n_iters)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+    was_on = spans.enabled()
+    spans.enable()
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            solver.run_iters(n_iters)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+    finally:
+        if not was_on:
+            spans.disable()
     os.makedirs(trace_dir, exist_ok=True)
     path = os.path.join(trace_dir, f"hf2d_trace_{os.getpid()}.json")
     prof.export_chrome_trace(path)

@@ -17,7 +17,7 @@ tests/test_swap_resume.py's fast tests:
 * no preload without a file or with a file of the wrong size;
 * the CLI (``--swap``, the default) resumes from the swap a first run
   wrote, with "PreloadFlag=1" and GlobalTime continued;
-* profile_solver writes a Chrome trace.
+* profile_solver writes a Chrome trace with the solver's spans.
 """
 
 import json
@@ -29,6 +29,7 @@ import pytest
 import torch
 from test_torch_cli import CPU, run_cli
 
+from openhyperflow2d_torch import spans
 from openhyperflow2d_torch.cli import main
 from openhyperflow2d_torch.config.deck import deck_to_text
 from openhyperflow2d_torch.examples import channel_deck, combustor_deck
@@ -211,5 +212,9 @@ def test_profile_solver_writes_a_trace(tmp_path):
     assert os.path.dirname(path) == str(tmp_path / "trace")
     trace = json.loads(open(path).read())
     assert trace["traceEvents"]
+    # the solver's spans are annotations of the trace, on for its call only
+    assert "solver.chunk" in {e.get("name") for e in trace["traceEvents"]
+                              if e.get("cat") == "user_annotation"}
+    assert not spans.enabled()
     assert s.last_iter == 5
     assert torch.isfinite(s.state.S).all()
